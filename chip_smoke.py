@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
 """Chip smoke run of duckdb_vss_tpu_torch, the PyTorch/CUDA port, on one GPU.
 
-Drives the port's main path through the calls a user makes:
+Drives the port's main paths through the calls a user makes. Path 1:
 HNSWIndex.add (the bulk build, IVF kNN sweep at this size), then
-HNSWIndex.search (mxu descent, seed beam, kernel K1, exact rerank). The
-configuration is the SIFT1M shape of ann-benchmarks'
-sift-128-euclidean: 1,000,000 x 128 f32 base vectors and 10,000
-queries, k=10, l2sq, with the HNSW defaults M=16, M0=32,
-ef_construction=128, ef_search=64. The data is SIFT-shaped clustered
-data made from --seed with bench.py's generator (4096 centres, sigma
-0.25). Ground truth is the port's own exact f32 FlatIndex scan.
+HNSWIndex.search (mxu descent, seed beam, kernel K1, exact rerank).
+Path 2: HNSWIndex.add of 16,384 further rows into the built graph
+(incremental insert, 64 batches of 256 through the int8 layout), then
+HNSWIndex.search once through the fused beam and once with
+layout="flat", traversal_dtype="f32", use_pallas=True: the step-by-step
+beam, whose per-step scoring is kernel K2. The configuration is the
+SIFT1M shape of ann-benchmarks' sift-128-euclidean: 1,000,000 x 128 f32
+base vectors and 10,000 queries, k=10, l2sq, with the HNSW defaults
+M=16, M0=32, ef_construction=128, ef_search=64. The data is SIFT-shaped
+clustered data made from --seed with bench.py's generator (4096
+centres, sigma 0.25). Ground truth is the port's own exact f32
+FlatIndex scan.
 
 Phases (any failure raises and exits non-zero):
   1. device: nvidia-smi name and power limit, torch's device name;
-  2. build: compile csrc/fused_beam.cu with nvcc for sm_90a, print the
+  2. build: compile csrc/fused_beam.cu and csrc/gather_scores.cu with
+     nvcc for sm_90a (two processes, started together), print each
      -Xptxas -v summary;
-  3. main path: build + search at full width, with every kernel launch
+  3. main path 1: build + search at full width, with every kernel launch
      count set to 0 just before and read just after; requires recall@10
      >= 0.95 against the flat scan, K1 launched, its plain version not;
   4. kernel check: K1 against its plain PyTorch version on the same card
@@ -24,7 +30,24 @@ Phases (any failure raises and exits non-zero):
      expansion counts): l2sq on the 1M tables (B=1024, ef 64, expand 4,
      32 steps) and ef 128 / expand 8; ip and cosine on a random table;
      l2sq at the search chunk's shape (B=8192), where K1's time is then
-     taken beside its plain version's and its bound.
+     taken beside its plain version's and its bound;
+  5. main path 2, counts set to 0 before and read after: the insert,
+     then (a) a fused search of the 10,000 queries and the inserted
+     rows, recall@10 >= 0.95 against the flat scan over all 1,016,384
+     rows and the inserted rows at rank 1 of their own search in >= 0.99
+     of cases; (b) the flat-layout search through K2, recall@10 >= 0.95,
+     K2 launched once per beam step, its plain version and K1 never;
+  6. kernel check: K2 against its plain PyTorch version for l2sq, ip and
+     cosine, on the 1M store with the ids of a real beam step
+     ([8192, 128], with -1s) and on a random table with zero rows, zero
+     queries and rows of -1 only: largest difference <= 1e-4 of the
+     scores' scale (f32 sums in another order), INF_SCORE exactly where
+     id < 0; the wrapper refuses a bf16 table, a width off 128, strided
+     ids. K2's time at that shape beside its plain version's and its
+     byte bound;
+  7. one more insert batch under torch.profiler, as one search_device
+     call of each path before it: device kernels per call and the card's
+     busy share (printed, not checked).
 
 The line before the last is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Run from the repository
@@ -42,11 +65,15 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12  # dense bf16, same source
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, same source
 TOL = 3e-3
 MIN_OVERLAP = 0.95
 MIN_RECALL = 0.95
 N, NQ, D, K = 1_000_000, 10_000, 128, 10  # SIFT1M: base rows, queries
-TIMED_B = 8192  # search_device's timed batch and K1's timed shape
+TIMED_B = 8192  # search_device's timed batch and the kernels' timed shape
+N_INSERT = 16_384  # rows added incrementally: 64 batches of 256
+MIN_SELF_RECALL = 0.99  # an inserted row is its own nearest neighbor
+GATHER_TOL = 1e-4  # K2 vs plain, relative to the scores' scale
 
 
 def log(msg: str) -> None:
@@ -216,6 +243,175 @@ def beam_bound_ms(args, kw, n_expanded):
                                       else "operations")
 
 
+def recall_of(got, want, k):
+    import numpy as np
+
+    return float(np.mean([len(set(a) & set(b)) / k
+                          for a, b in zip(got.tolist(), want.tolist())]))
+
+
+def compare_gather(name, vectors, ids, queries, metric):
+    """K2 and its plain version on the same card inputs. Returns the
+    largest score difference over the live candidates."""
+    import torch
+
+    from duckdb_vss_tpu_torch.ops import fused_gather as fg
+
+    q_sq = (queries * queries).sum(-1)
+    got = fg.gather_scores_kernel(vectors, ids, queries, q_sq, metric)
+    if got.is_cuda:  # a fault during the run surfaces here
+        torch.cuda.synchronize()
+    want = fg.gather_scores_plain(vectors, ids, queries, q_sq, metric)
+    live = ids >= 0
+    check(got.shape == ids.shape and got.dtype == torch.float32,
+          f"{name}: output {got.dtype} {tuple(got.shape)}")
+    check(bool((got[~live] == fg.INF_SCORE).all()),
+          f"{name}: a score other than INF_SCORE where id < 0")
+    check(bool((got[live] < fg.INF_SCORE).all()),
+          f"{name}: INF_SCORE at a live candidate")
+    scale = max(1.0, float(want[live].abs().max())) if live.any() else 1.0
+    err = float((got[live] - want[live]).abs().max()) if live.any() else 0.0
+    log(f"# kernel check {name}: ids {tuple(ids.shape)} live "
+        f"{int(live.sum())} max_abs_err={err:.3e} (scale {scale:.1f})")
+    check(err <= GATHER_TOL * scale,
+          f"{name}: max_abs_err {err} > {GATHER_TOL} x scale {scale}")
+    return err
+
+
+def gather_checks_random(device, n=4096, d=256, b=64, c=40, seed=0):
+    """K2 against its plain version on a random table, every metric:
+    zero rows, zero queries, rows of -1 only, a width of two passes
+    (also run by the gpu-marked test in tests/test_torch_gather.py)."""
+    import numpy as np
+    import torch
+
+    from duckdb_vss_tpu_torch.utils.config import MetricKind
+
+    rng = np.random.default_rng(seed)
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    vecs[[5, 9]] = 0.0
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    q[2] = 0.0
+    ids = rng.integers(0, n, (b, c)).astype(np.int32)
+    ids[rng.random((b, c)) < 0.2] = -1
+    ids[:, 3] = 5  # every query meets a zero row
+    ids[4] = -1  # no candidate at all
+    t = [torch.from_numpy(a).to(device) for a in (vecs, ids, q)]
+    return {m.value: compare_gather(f"random-{m.value}", *t, m)
+            for m in (MetricKind.L2SQ, MetricKind.IP, MetricKind.COSINE)}
+
+
+def gather_rejects(device):
+    """K2's wrapper raises on what the kernel does not take, and
+    launches nothing (also run by the gpu-marked test in
+    tests/test_torch_gather.py)."""
+    import torch
+
+    from duckdb_vss_tpu_torch.ops import fused_gather as fg
+    from duckdb_vss_tpu_torch.utils.config import MetricKind
+
+    v = torch.randn(64, 128, device=device)
+    q = torch.randn(4, 128, device=device)
+    q_sq = (q * q).sum(-1)
+    ids = torch.zeros((4, 8), dtype=torch.int32, device=device)
+    bad = {
+        "a bf16 table": (v.to(torch.bfloat16), ids, q, q_sq),
+        "a row width of 96": (v[:, :96].contiguous(), ids,
+                              q[:, :96].contiguous(), q_sq),
+        "ids that are not contiguous": (v, ids.T.contiguous().T, q, q_sq),
+        "int64 ids": (v, ids.long(), q, q_sq),
+        "queries on the CPU": (v, ids, q.cpu(), q_sq),
+        "one query too few": (v, ids, q[:3], q_sq),
+    }
+    launches = fg.gather_scores_kernel.launches
+    for what, args in bad.items():
+        try:
+            fg.gather_scores_kernel(*args, MetricKind.L2SQ)
+        except ValueError:
+            continue
+        check(False, f"K2's wrapper took {what}")
+    check(fg.gather_scores_kernel.launches == launches,
+          "K2 launched on inputs it must refuse")
+    log(f"# kernel check K2 wrapper: refused {len(bad)} bad inputs")
+
+
+def beam_step_ids(idx, qd, expand=4):
+    """The candidate ids of the search beam's first step, as
+    graph.beam_search hands them to K2: the neighbor lists of the best
+    ``expand`` descent seeds, with -1 for absent neighbors, ids already
+    in the beam and repeats within the block. [B, expand * M0] int32."""
+    import torch
+
+    from duckdb_vss_tpu_torch.models.graph import mxu_descent, seed_beam
+
+    uv, uvsq, unode = idx._upper_vectors()
+    seeds, _ = mxu_descent(uv, uvsq, unode, idx.graph.entry_node, qd,
+                           idx.metric, 8)
+    _, beam = seed_beam(idx.store._vectors, idx.store._vec_sq, seeds, qd,
+                        (qd * qd).sum(-1), idx.metric, 8)
+    sel = beam[:, :expand]
+    nbrs = torch.where((sel >= 0)[:, :, None],
+                       idx.graph.neighbors0[sel.clamp_min(0).long()], -1)
+    nbrs = nbrs.reshape(qd.shape[0], -1)
+    in_beam = (nbrs[:, :, None] == beam[:, None, :]).any(dim=2)
+    dup = torch.triu(nbrs[:, :, None] == nbrs[:, None, :], 1).any(dim=1)
+    return torch.where((nbrs >= 0) & ~in_beam & ~dup, nbrs, -1).contiguous()
+
+
+def gather_bound_ms(ids, d):
+    """Least time for the same work on the card: every live candidate's
+    row (d floats) is read once, and ids, queries, q_sq and the output
+    move once. Four f32 operations per row element (dot and norm)."""
+    b, c = ids.shape
+    live = int((ids >= 0).sum())
+    nbytes = live * d * 4 + b * c * 4 + b * d * 4 + b * 4 + b * c * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = live * d * 4 / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", live)
+
+
+def profile_on_card(what, fn, smi):
+    """Run fn once under torch.profiler and print how many device
+    kernels it launched, how long the card was busy within its wall
+    time, the five operators with the most device time and the port's
+    own kernels (printed, not checked)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # key_averages lists every device kernel (device_type CUDA) and, once
+    # more, the operator that launched it (device_type CPU, with the
+    # kernel's time as its own device time): count the kernels, name the
+    # operators, and the port's own kernels, which no operator launches
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log(f"# profile of {what} on {smi}: {wall_ms:.1f} ms under the "
+            "profiler; device time not measured (the profiler recorded no "
+            "device activity)")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ops = sorted((e for e in events if e.device_type != DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)[:5]
+    own = [e for e in kernels
+           if "gather_scores" in e.key or "fused_beam" in e.key]
+    names = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms"
+                      f" x{e.count}" for e in ops + own)
+    log(f"# profile of {what} on {smi}: {wall_ms:.1f} ms under the profiler, "
+        f"{sum(e.count for e in kernels)} device kernels and copies, card "
+        f"busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%} of the wall time); "
+        f"most device time by operator: {names}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1234)
@@ -244,8 +440,11 @@ def main(argv=None) -> int:
 
     from duckdb_vss_tpu_torch import HNSWConfig, MetricKind
     from duckdb_vss_tpu_torch.models.flat import FlatIndex
+    from duckdb_vss_tpu_torch.models import graph as port_graph
     from duckdb_vss_tpu_torch.models.hnsw import HNSWIndex
+    from duckdb_vss_tpu_torch.ops import cuda_build
     from duckdb_vss_tpu_torch.ops import fused_beam as fb
+    from duckdb_vss_tpu_torch.ops import fused_gather as fg
     from duckdb_vss_tpu_torch.utils.timing import device_time
 
     t_start = time.perf_counter()
@@ -260,12 +459,14 @@ def main(argv=None) -> int:
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
-    build_log = fb.build_library()
-    log(f"# nvcc build of {os.path.relpath(fb.SOURCE, here)}: "
+    build_logs = cuda_build.build([fb.KERNEL, fg.KERNEL])
+    log(f"# nvcc build of {os.path.relpath(fb.SOURCE, here)} and "
+        f"{os.path.relpath(fg.SOURCE, here)} (in parallel): "
         f"{time.perf_counter() - t0:.2f} s")
-    for line in build_log.splitlines():
-        if "ptxas" in line or "Used" in line or "spill" in line:
-            log(f"#   {line.strip()}")
+    for name, build_log in build_logs.items():
+        for line in build_log.splitlines():
+            if "ptxas" in line or "Used" in line or "spill" in line:
+                log(f"#   {name}: {line.strip()}")
 
     # ---- 3. main path at full width -----------------------------------
     n, nq, d, k = N, NQ, D, K
@@ -280,8 +481,13 @@ def main(argv=None) -> int:
 
     config = HNSWConfig()  # M=16, M0=32, ef_construction=128, ef_search=64
     torch.cuda.reset_peak_memory_stats()
-    fb.fused_beam_search.launches = 0
-    fb.beam_search_plain.calls = 0
+
+    def zero_counts():
+        fb.fused_beam_search.launches = fb.beam_search_plain.calls = 0
+        fg.gather_scores_kernel.launches = fg.gather_scores_plain.calls = 0
+        port_graph.beam_search.steps = 0
+
+    zero_counts()
     idx = HNSWIndex(d, config, capacity=n, device=dev)
     t0 = time.perf_counter()
     idx.add(vecs, keys)
@@ -312,8 +518,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _, want = flat.search(q, k)
     flat_s = time.perf_counter() - t0
-    recall = float(np.mean([len(set(a) & set(b)) / k
-                            for a, b in zip(got.tolist(), want.tolist())]))
+    recall = recall_of(got, want, k)
     log(f"# recall@{k} vs the exact f32 flat scan: {recall:.4f} "
         f"(flat scan {flat_s:.2f} s)")
     check(got.shape == (nq, k) and (got >= 0).all(), "missing results")
@@ -329,7 +534,8 @@ def main(argv=None) -> int:
     dev_s = device_time(lambda: idx.search_device(qd, k), iters=5)
     log(f"# search_device ({TIMED_B} queries on the card): {dev_s * 1e3:.2f} "
         f"ms = {TIMED_B / dev_s:.0f} QPS")
-    del flat
+    profile_on_card(f"search_device through K1, {TIMED_B} queries",
+                    lambda: idx.search_device(qd, k), smi)
 
     # ---- 4. kernel check and timing -------------------------------------
     kw = dict(ef=64, expand=4, m0=config.m0, d=idx.store.d_pad,
@@ -351,6 +557,107 @@ def main(argv=None) -> int:
         f"{p_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, {n_exp} live "
         f"expansions); {bound_ms / k_ms:.1%} of the bound")
     search_stages(idx, qd, args, kw, k, dev_s * 1e3, k_ms)
+    del args
+
+    # ---- 5. main path 2: incremental insert, then both searches ---------
+    new = (centers[rng.integers(0, len(centers), N_INSERT)]
+           + 0.25 * rng.normal(size=(N_INSERT, d)).astype(np.float32))
+    new_keys = np.arange(n, n + N_INSERT, dtype=np.int64)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    idx.add(new, new_keys)
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    insert_steps = port_graph.beam_search.steps
+    n_batches = N_INSERT // idx.build_batch
+    check(idx._nbr_cache is not None, "the insert ran without the int8 layout")
+    log(f"# insert on {smi}: {N_INSERT} rows into {n} in {n_batches} batches "
+        f"of {idx.build_batch}: {insert_s:.2f} s = {N_INSERT / insert_s:.0f} "
+        f"vec/s, {insert_s / n_batches * 1e3:.1f} ms per batch "
+        f"({insert_steps} beam steps)")
+    # (a) the fused search: the old queries and the inserted rows
+    q_all = np.concatenate([q, new])
+    scores_a, got_a = idx.search(q_all, k)
+    k1_launches_2 = fb.fused_beam_search.launches
+    check(port_graph.beam_search.steps == insert_steps,
+          "search (a) left the fused beam")
+    flat.add(new, new_keys)
+    _, want_all = flat.search(q_all, k)
+    recall_a = recall_of(got_a, want_all, k)
+    self_a = float((got_a[nq:, 0] == new_keys).mean())
+    log(f"# (a) fused search after the insert: recall@{k} {recall_a:.4f} "
+        f"over {len(q_all)} queries against the flat scan of {len(flat)} "
+        f"rows; inserted rows at rank 1: {self_a:.4f}")
+    check(np.isfinite(scores_a).all(), "(a): non-finite scores")
+    check(recall_a >= MIN_RECALL, f"(a): recall {recall_a} < {MIN_RECALL}")
+    check(self_a >= MIN_SELF_RECALL,
+          f"(a): self-recall@1 {self_a} < {MIN_SELF_RECALL}")
+    check(k1_launches_2 > 0, "(a): the fused search never launched K1")
+    # (b) the flat layout: the step-by-step beam, scored by kernel K2
+    idx.layout, idx.traversal_dtype, idx.use_pallas = "flat", "f32", True
+    fb.fused_beam_search.launches = 0
+    t0 = time.perf_counter()
+    scores_b, got_b = idx.search(q, k)
+    search_b_s = time.perf_counter() - t0
+    k2_launches = fg.gather_scores_kernel.launches
+    steps_b = port_graph.beam_search.steps - insert_steps
+    k2_plain_calls = fg.gather_scores_plain.calls
+    k1_in_b = fb.fused_beam_search.launches
+    plain_calls_2 = fb.beam_search_plain.calls
+    peak2_gb = torch.cuda.max_memory_allocated() / 2**30
+    recall_b = recall_of(got_b, want_all[:nq], k)
+    log(f"# (b) flat-layout search on {smi}: {nq} queries in "
+        f"{search_b_s:.3f} s = {nq / search_b_s:.0f} QPS, recall@{k} "
+        f"{recall_b:.4f}; K2 launches {k2_launches} over {steps_b} beam "
+        f"steps; K2 plain calls {k2_plain_calls}; K1 launches {k1_in_b}")
+    check(np.isfinite(scores_b).all() and (got_b >= 0).all(),
+          "(b): missing or non-finite results")
+    exact = ((q[:50, None, :] - np.concatenate([vecs, new])[got_b[:50]]) ** 2
+             ).sum(-1)
+    check(np.allclose(scores_b[:50], exact, rtol=1e-4, atol=1e-4),
+          "(b): emitted distances are not the exact l2sq values")
+    check(recall_b >= MIN_RECALL, f"(b): recall {recall_b} < {MIN_RECALL}")
+    check(steps_b > 0 and k2_launches == steps_b,
+          f"(b): {k2_launches} K2 launches for {steps_b} beam steps")
+    check(k2_plain_calls == 0, "the main path ran K2's plain version")
+    check(k1_in_b == 0, "(b): the flat-layout search launched K1")
+    check(plain_calls_2 == 0, "the main path ran K1's plain version")
+    dev_b_s = device_time(lambda: idx.search_device(qd, k), iters=3)
+    log(f"# (b) search_device on {smi} ({TIMED_B} queries on the card): "
+        f"{dev_b_s * 1e3:.2f} ms = {TIMED_B / dev_b_s:.0f} QPS")
+    profile_on_card(f"(b) search_device, {TIMED_B} queries",
+                    lambda: idx.search_device(qd, k), smi)
+    log(f"# path 2 peak device memory on {smi}: {peak2_gb:.2f} GiB")
+    idx.layout, idx.traversal_dtype, idx.use_pallas = "auto", "bf16", False
+    del flat
+
+    # ---- 6. K2 against its plain version, and its time --------------------
+    store = idx.store._vectors
+    step_ids = beam_step_ids(idx, qd)
+    check(tuple(step_ids.shape) == (TIMED_B, 4 * config.m0)
+          and bool((step_ids < 0).any()), "beam step ids")
+    errs2 = {m.value: compare_gather(f"1M-{m.value}", store, step_ids, qd, m)
+             for m in (MetricKind.L2SQ, MetricKind.IP, MetricKind.COSINE)}
+    err2 = max(list(errs2.values())
+               + list(gather_checks_random(dev).values()))
+    gather_rejects(dev)
+    qd_sq = (qd * qd).sum(-1)
+    g_args = (store, step_ids, qd, qd_sq, MetricKind.L2SQ)
+    k2_ms = device_time(lambda: fg.gather_scores_kernel(*g_args),
+                        iters=20) * 1e3
+    p2_ms = device_time(lambda: fg.gather_scores_plain(*g_args),
+                        iters=5) * 1e3
+    bound2_ms, bound2_by, live2 = gather_bound_ms(step_ids, store.shape[1])
+    log(f"# K2 on {smi} at ids [{TIMED_B}, {step_ids.shape[1]}] x "
+        f"D={store.shape[1]}: {k2_ms:.3f} ms; plain {p2_ms:.3f} ms; bound "
+        f"{bound2_ms:.4f} ms ({bound2_by}, {live2} live candidates); "
+        f"{bound2_ms / k2_ms:.1%} of the bound")
+    bb = idx.build_batch
+    extra = (centers[rng.integers(0, len(centers), bb)]
+             + 0.25 * rng.normal(size=(bb, d)).astype(np.float32))
+    profile_on_card(f"one insert batch of {bb} rows",
+                    lambda: idx.add(extra, np.arange(bb) + 10**9), smi)
     log(f"# total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -358,12 +665,24 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "duckdb_vss_tpu_torch/csrc/fused_beam.cu",
         "replaces": "duckdb_vss_tpu/ops/pallas_beam.py:133",
-        "launches": k1_launches,
+        "launches": k1_launches + k1_launches_2,
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "gather_scores",
+        "route": "cuda",
+        "source": "duckdb_vss_tpu_torch/csrc/gather_scores.cu",
+        "replaces": "duckdb_vss_tpu/ops/pallas_gather.py:40",
+        "launches": k2_launches,
+        "max_abs_err": err2,
+        "ms": k2_ms,
+        "plain_ms": p2_ms,
+        "bound_ms": bound2_ms,
+        "bound_by": bound2_by,
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,32 +1,41 @@
-"""HNSW graph state and search (port of duckdb_vss_tpu/models/graph.py,
-the part on the main path).
+"""HNSW graph state and search (port of duckdb_vss_tpu/models/graph.py).
 
 Layout, as in the JAX package:
 - the base layer is one [cap, M0] int32 table (sentinel -1);
 - upper layers live in a compacted [cap_u, L_MAX*M] packed table
   addressed through an upper-slot indirection (level l in columns
   [(l-1)*M, l*M));
-- traversal reads the neighborhood-materialized int8 layout
-  (make_neighborhood_tables): every node's M0 neighbor vectors as one
-  contiguous [M0, D] int8 tile, plus its packed meta row (pack_meta).
+- the neighborhood-materialized int8 layout (make_neighborhood_tables)
+  holds every node's M0 neighbor vectors as one contiguous [M0, D] int8
+  tile, plus its packed meta row (pack_meta); update_neighborhood_rows
+  refreshes the rows an insert batch changed.
 
-Search runs four steps: mxu_descent scores every upper-level node and
-takes the best as seeds; seed_beam scores, dedups and sorts them; the
-fused beam kernel (ops/fused_beam.py) runs the base-layer beam; and
-_finish_search drops tombstones and reranks exactly in f32.
+Search: a descent picks base-layer seeds (mxu_descent scores every
+upper-level node; beam_descent walks the upper levels), the base-layer
+beam runs either through the fused kernel K1 (ops/fused_beam.py, ef <=
+128 and expand <= 8 over the int8 layout) or through ``beam_search``,
+the step-by-step beam, whose per-step scoring reads the int8 tiles, or
+kernel K2 (ops/fused_gather.py), or plain gathers; _finish_search drops
+tombstones, reranks exactly in f32 and optionally expands one hop.
 
-Not on this slice's path, and so not here yet: the non-fused XLA beam
-(beam_search), greedy/beam descent, the augmented table, the hop
-rerank and update_neighborhood_rows. They come with the insert slice.
+``beam_search`` ends early the way the JAX package's while-loop does,
+but looks at the ``done`` flag only every ``sync_every`` steps (one host
+read each): a step taken after ``done`` selects nothing and changes
+nothing, so the beam and the distance count are the same.
+
+Not here yet: the augmented traversal table and the "scan"/"unroll"
+loop forms (same results as the while form).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
-from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search
+from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search, pack_meta
+from duckdb_vss_tpu_torch.ops.fused_gather import gather_scores_kernel
 from duckdb_vss_tpu_torch.ops.topk import flat_topk, smallest_k
 from duckdb_vss_tpu_torch.utils.config import MetricKind
 from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
@@ -39,7 +48,7 @@ L_MAX = 8
 UPPER_DIV = 4
 
 # the fused kernel's gate (graph.py in the JAX package): wider beams or
-# expansions run the non-fused beam, which arrives with the insert slice
+# expansions run the step-by-step beam
 FUSED_MAX_EF = 128
 FUSED_MAX_EXPAND = 8
 
@@ -144,6 +153,16 @@ def metric_epilogue(dot, v_sq, q_sq, metric: MetricKind) -> torch.Tensor:
     raise ValueError(f"unknown metric {metric}")
 
 
+def _quantize_rows_i8(rows: torch.Tensor):
+    """Symmetric int8 quantization along the last axis: (q8, scale)."""
+    absmax = rows.abs().amax(dim=-1)
+    # times f32(1/127), not / 127: XLA rewrites the JAX package's
+    # jitted division by a constant into this product
+    scale = torch.where(absmax > 0, absmax * (1.0 / 127.0), 1.0)
+    q8 = torch.clamp(torch.round(rows / scale[..., None]), -127, 127)
+    return q8.to(torch.int8), scale
+
+
 def make_neighborhood_tables(
     vectors: torch.Tensor,  # [cap, d_pad] f32 store
     vec_sq: torch.Tensor,  # [cap]
@@ -167,30 +186,249 @@ def make_neighborhood_tables(
     scales = torch.empty((cap, m0), dtype=torch.float32, device=vectors.device)
     for off in range(0, cap, chunk):
         nb = neighbors0[off:off + chunk].clamp_min(0).long()
-        rows = vectors[nb].float()  # [S, M0, D]
-        absmax = rows.abs().amax(dim=-1)
-        # times f32(1/127), not / 127: XLA rewrites the JAX package's
-        # jitted division by a constant into this product
-        scale = torch.where(absmax > 0, absmax * (1.0 / 127.0), 1.0)
-        q8 = torch.clamp(torch.round(rows / scale[..., None]), -127, 127)
-        table[off:off + nb.shape[0]] = q8.to(torch.int8)
+        q8, scale = _quantize_rows_i8(vectors[nb].float())  # [S, M0, D]
+        table[off:off + nb.shape[0]] = q8
         scales[off:off + nb.shape[0]] = scale
     sq = vec_sq[neighbors0.clamp_min(0).long()]
     return table, scales, sq
 
 
+def update_neighborhood_rows(nbr_vecs, nbr_scale, nbr_sq, nbr_meta,
+                             vectors, vec_sq, neighbors0, new_slots):
+    """Refresh the neighborhood layout for the rows an insert batch
+    changed: the new nodes' own rows plus their forward targets (the
+    only rows insert_batch amends through back-links, both subsets of
+    the new nodes' forward lists, which are neighbors0[new_slots] after
+    the batch). B*(M0+1) row recomputes instead of a whole-table
+    rebuild.
+
+    The four tables are updated IN PLACE and returned. new_slots may
+    hold -1 (inactive pad) and rows may repeat. Every row is recomputed
+    from the current neighbors0, so repeats write identical values, and
+    an inactive entry rewrites row 0 with the values it already has:
+    nothing needs masking."""
+    safe_new = new_slots.clamp_min(0).long()
+    fwd = torch.where(new_slots[:, None] >= 0, neighbors0[safe_new], -1)
+    rows = torch.cat([new_slots, fwd.reshape(-1)]).clamp_min(0).long()
+    nbr = neighbors0[rows]  # [R, M0]
+    safe = nbr.clamp_min(0).long()
+    q8, scale = _quantize_rows_i8(vectors[safe].float())
+    sq = vec_sq[safe]  # unmasked, matching the full build
+    nbr_vecs[rows] = q8
+    nbr_scale[rows] = scale
+    nbr_sq[rows] = sq
+    nbr_meta[rows] = pack_meta(nbr, scale, sq)
+    return nbr_vecs, nbr_scale, nbr_sq, nbr_meta
+
+
 def quantize_queries_i8(queries: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-query symmetric int8 quantization: (q8 [B, D], scale [B])."""
-    absmax = queries.abs().amax(dim=-1)
-    scale = torch.where(absmax > 0, absmax / 127.0, 1.0)
-    q8 = torch.clamp(torch.round(queries / scale[:, None]), -127, 127)
-    return q8.to(torch.int8), scale
+    return _quantize_rows_i8(queries)
+
+
+def _int8_tile_scores(nbr_vecs, nbr_scale, nbr_sq, sel_safe, q_i8, q_scale,
+                      q_sq, metric):
+    """Scores of the candidates held in the int8 tiles of the selected
+    nodes ``sel_safe`` [B, E]: [B, E*M0]. The int8 x int8 products are
+    summed exactly: in f32 while every partial sum stays below 2^24
+    (127^2 d), else in f64."""
+    b = sel_safe.shape[0]
+    d = q_i8.shape[1]
+    cand = nbr_vecs[sel_safe].reshape(b, -1, d)  # [B, E*M0, D] i8
+    wide = torch.float32 if 127 * 127 * d < 2**24 else torch.float64
+    dot_i = torch.bmm(cand.to(wide), q_i8.to(wide)[:, :, None])[:, :, 0]
+    v_scale = nbr_scale[sel_safe].reshape(b, -1)
+    v_sq = nbr_sq[sel_safe].reshape(b, -1)
+    dot = dot_i.float() * v_scale * q_scale[:, None]
+    return metric_epilogue(dot, v_sq, q_sq, metric)
+
+
+def fetch_upper_neighbors(state: GraphState, ids: torch.Tensor,
+                          level: int) -> torch.Tensor:
+    """Neighbor lists of ``ids`` at upper ``level`` (1-based): [..., M]."""
+    m = state.upper_neighbors.shape[1] // L_MAX
+    slot = state.upper_slot[ids.clamp_min(0).long()]
+    has = (ids >= 0) & (slot >= 0)
+    lvl_idx = min(max(int(level) - 1, 0), L_MAX - 1)
+    nbrs = state.upper_neighbors[slot.clamp_min(0).long()]
+    nbrs = nbrs[..., lvl_idx * m:(lvl_idx + 1) * m]
+    return torch.where(has[..., None], nbrs, -1)
 
 
 # ---------------------------------------------------------------------------
-# search: descent + seed beam + fused base beam + exact rerank
+# greedy upper-level descent
 # ---------------------------------------------------------------------------
+
+
+def greedy_descent(
+    state: GraphState,
+    vectors: torch.Tensor,
+    vec_sq: torch.Tensor,
+    queries: torch.Tensor,  # [B, D]
+    q_sq: torch.Tensor,
+    stop_level: torch.Tensor,  # [B] int32: descend while level > stop_level
+    metric: MetricKind,
+    max_iters_per_level: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy 1-NN walk from the entry point down to stop_level+1.
+
+    Returns (cur_node [B], cur_score [B], n_dist []). Queries whose
+    stop_level >= max_level start at the entry untouched. One host read
+    of max_level, and one of ``moved`` per walk step."""
+    b = queries.shape[0]
+    cur = state.entry_node.expand(b)
+    cur_score = torch.where(
+        cur >= 0,
+        gather_scores(vectors, vec_sq, cur[:, None], queries, q_sq,
+                      metric)[:, 0],
+        INF_SCORE)
+    n_dist = torch.tensor(b, dtype=torch.int64, device=queries.device)
+    max_level = int(state.max_level)
+    for lvl in range(min(max_level, L_MAX), 0, -1):
+        for _ in range(max_iters_per_level):
+            nbrs = fetch_upper_neighbors(state, cur, lvl)  # [B, M]
+            valid = nbrs >= 0
+            s = gather_scores(vectors, vec_sq, nbrs, queries, q_sq, metric)
+            s = torch.where(valid, s, INF_SCORE)
+            best_pos = torch.argmin(s, dim=1, keepdim=True)
+            best_s = torch.gather(s, 1, best_pos)[:, 0]
+            best_id = torch.gather(nbrs, 1, best_pos)[:, 0]
+            active_q = (lvl > stop_level) & (cur >= 0)
+            improve = active_q & (best_s < cur_score)
+            cur = torch.where(improve, best_id, cur)
+            cur_score = torch.where(improve, best_s, cur_score)
+            n_dist = n_dist + (valid & active_q[:, None]).sum()
+            if not bool(improve.any()):
+                break
+    return cur, cur_score, n_dist
+
+
+# ---------------------------------------------------------------------------
+# beam search at one level
+# ---------------------------------------------------------------------------
+
+
+def beam_search(
+    state: GraphState,
+    vectors: torch.Tensor,
+    vec_sq: torch.Tensor,
+    queries: torch.Tensor,  # [B, D]
+    q_sq: torch.Tensor,  # [B]
+    entry_nodes: torch.Tensor,  # [B, P] int32 seeds (-1 allowed)
+    ef: int,
+    metric: MetricKind,
+    level: int = 0,  # 0 = base layer; >0 = upper layer
+    expand: int = 2,  # E: beam entries expanded per step
+    max_steps: int | None = None,
+    active: torch.Tensor | None = None,  # [B] bool; inactive queries idle
+    use_pallas: bool = False,  # score through kernel K2 (f32 table only)
+    nbr_vecs: torch.Tensor | None = None,  # [cap, M0, D] i8 neighborhood
+    nbr_scale: torch.Tensor | None = None,  # [cap, M0] f32 dequant scales
+    nbr_sq: torch.Tensor | None = None,  # [cap, M0]
+    sync_every: int = 4,  # read ``done`` every so many steps; 0 = never
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched best-first beam search, one step at a time. Returns
+    (scores [B, ef] ascending, ids [B, ef], n_dist []). Tombstones are
+    NOT filtered here: the filter applies to results, not traversal.
+
+    Per-step scoring, in the JAX package's order of choice: the int8
+    neighborhood tiles when given (base layer only), kernel K2 when
+    ``use_pallas``, else gather_scores on ``vectors`` (f32 or bf16).
+
+    The loop ends at ``max_steps`` or when every beam entry is expanded
+    or empty. That flag is read on the host every ``sync_every`` steps;
+    steps taken past it change nothing (see the module docstring).
+    ``beam_search.steps`` counts the steps taken by all calls."""
+    b, p = entry_nodes.shape
+    dev = queries.device
+    base = level == 0
+    tiles = nbr_vecs is not None and base
+    if max_steps is None:
+        max_steps = 3 * ef // expand + 8
+    if active is None:
+        active = torch.ones((b,), dtype=torch.bool, device=dev)
+    if use_pallas and not tiles and vectors.dtype != torch.float32:
+        raise ValueError(
+            "use_pallas scores through the gather+score kernel, which takes "
+            f"an f32 table; the traversal table is {vectors.dtype}. Build "
+            "the index with traversal_dtype='f32'")
+
+    # init beam from entry points
+    seed_valid = (entry_nodes >= 0) & active[:, None]
+    seed_s = gather_scores(vectors, vec_sq, entry_nodes, queries, q_sq, metric)
+    seed_s = torch.where(seed_valid, seed_s, INF_SCORE)
+    # dedup seeds (the same entry may be given twice); a repeat keeps its
+    # id with an INF score
+    dup = torch.triu(entry_nodes[:, :, None] == entry_nodes[:, None, :],
+                     1).any(dim=1)
+    scores = torch.where(dup, INF_SCORE, seed_s)
+    ids = torch.where(seed_valid, entry_nodes, -1)
+    if p < ef:
+        scores = torch.cat([scores, scores.new_full((b, ef - p), INF_SCORE)], 1)
+        ids = torch.cat([ids, ids.new_full((b, ef - p), -1)], 1)
+    elif p > ef:
+        scores, pos = smallest_k(scores, ef)
+        ids = torch.gather(ids, 1, pos)
+    expanded = torch.zeros((b, ef), dtype=torch.bool, device=dev)
+    n_dist = seed_valid.sum()
+    beam_pos = torch.arange(ef, device=dev)
+    if tiles:
+        q_i8, q_scale = quantize_queries_i8(queries.float())
+
+    it = 0
+    while it < max_steps:
+        # select E best unexpanded candidates
+        sel_key = torch.where(expanded | (scores >= INF_SCORE), INF_SCORE,
+                              scores)
+        sel_s, sel_pos = smallest_k(sel_key, expand)  # [B, E]
+        sel_live = sel_s < INF_SCORE
+        sel_ids = torch.where(sel_live, torch.gather(ids, 1, sel_pos), -1)
+        hit = ((beam_pos[None, None, :] == sel_pos[:, :, None])
+               & sel_live[:, :, None]).any(dim=1)
+        expanded = expanded | hit
+
+        if base:
+            nbrs = torch.where(
+                (sel_ids >= 0)[:, :, None],
+                state.neighbors0[sel_ids.clamp_min(0).long()], -1)
+        else:
+            nbrs = fetch_upper_neighbors(state, sel_ids, level)
+        nbrs = nbrs.reshape(b, -1)  # [B, E*M]
+        valid = (nbrs >= 0) & active[:, None]
+        in_beam = (nbrs[:, :, None] == ids[:, None, :]).any(dim=2)
+        # dedup within the new candidate block (keep first occurrence)
+        dup_new = torch.triu(nbrs[:, :, None] == nbrs[:, None, :],
+                             1).any(dim=1)
+        keep = valid & ~in_beam & ~dup_new
+        kept_ids = torch.where(keep, nbrs, -1)
+
+        if tiles:
+            s = _int8_tile_scores(nbr_vecs, nbr_scale, nbr_sq,
+                                  sel_ids.clamp_min(0).long(), q_i8, q_scale,
+                                  q_sq, metric)
+        elif use_pallas:
+            s = gather_scores_kernel(vectors, kept_ids, queries, q_sq, metric)
+        else:
+            s = gather_scores(vectors, vec_sq, nbrs, queries, q_sq, metric)
+        s = torch.where(keep, s, INF_SCORE)
+        n_dist = n_dist + keep.sum()
+
+        # merge into beam: top-ef of (beam + new)
+        cat_s = torch.cat([scores, s], 1)
+        scores, pos = smallest_k(cat_s, ef)
+        ids = torch.gather(torch.cat([ids, kept_ids], 1), 1, pos)
+        expanded = torch.gather(
+            torch.cat([expanded, torch.zeros_like(keep)], 1), 1, pos)
+        it += 1
+        if sync_every and it % sync_every == 0 and it < max_steps:
+            if bool((expanded | (scores >= INF_SCORE)).all()):
+                break
+    beam_search.steps += it
+    return scores, ids, n_dist
+
+
+beam_search.steps = 0
 
 
 def mxu_descent(
@@ -209,14 +447,43 @@ def mxu_descent(
     b = queries.shape[0]
     live = upper_node >= 0
     n_dist = live.sum() * b
+    # the upper table of a 1.5 x 2^k capacity bucket is no multiple of
+    # 16384 rows: take the largest power of two that divides it
     score, slot = flat_topk(
         queries, upper_vecs, n_seeds, metric, vec_sq=upper_vec_sq,
-        valid=live, block_n=min(16384, upper_vecs.shape[0]))
+        valid=live, block_n=math.gcd(16384, upper_vecs.shape[0]))
     seeds = torch.where(score < INF_SCORE,
                         upper_node[slot.clamp_min(0).long()], -1)
     # no upper level yet: fall back to the entry node as the only seed
     has = (seeds >= 0).any(dim=1, keepdim=True)
     return torch.where(has, seeds, entry_node), n_dist
+
+
+def beam_descent(
+    state: GraphState,
+    vectors: torch.Tensor,
+    vec_sq: torch.Tensor,
+    queries: torch.Tensor,  # [B, D]
+    q_sq: torch.Tensor,
+    metric: MetricKind,
+    descent_ef: int = 16,
+    n_seeds: int = 4,
+    descent_steps: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Small-beam descent through the upper levels: a greedy hill-climb
+    through levels max..2, then one short beam at level 1, whose best
+    entries are the base-layer seeds. Returns (seed_ids [B, n_seeds],
+    n_dist [])."""
+    b = queries.shape[0]
+    stop_level = torch.ones((b,), dtype=torch.int32, device=queries.device)
+    cur, _, nd0 = greedy_descent(state, vectors, vec_sq, queries, q_sq,
+                                 stop_level, metric)
+    _scores, ids, nd1 = beam_search(
+        state, vectors, vec_sq, queries, q_sq, cur[:, None], descent_ef,
+        metric, level=1, expand=4, max_steps=descent_steps or descent_ef,
+        active=(state.max_level >= 1).expand(b))
+    seeds = ids[:, :n_seeds]
+    return torch.where(seeds >= 0, seeds, cur[:, None]), nd0 + nd1
 
 
 def seed_beam(
@@ -246,18 +513,9 @@ def seed_beam(
     return seed_s.contiguous(), torch.gather(seed_i, 1, pos).contiguous()
 
 
-def check_fused_gate(ef: int, expand: int, hop_rerank: int = 0) -> None:
-    """Raise for the search settings this slice does not run: they need
-    the non-fused beam or the hop rerank, which arrive with the insert
-    slice. Nothing else is run in their place."""
-    if ef > FUSED_MAX_EF or expand > FUSED_MAX_EXPAND:
-        raise NotImplementedError(
-            f"ef={ef} > {FUSED_MAX_EF} or expand={expand} > "
-            f"{FUSED_MAX_EXPAND} needs the non-fused beam search, which "
-            "arrives with the insert-path slice")
-    if hop_rerank:
-        raise NotImplementedError(
-            "hop_rerank > 0 arrives with the insert-path slice")
+# ---------------------------------------------------------------------------
+# full search (descent + base beam + tombstone filter + exact rerank)
+# ---------------------------------------------------------------------------
 
 
 def search_graph(
@@ -269,52 +527,141 @@ def search_graph(
     k: int,
     ef: int,
     metric: MetricKind,
-    upper_vecs: torch.Tensor,
-    upper_vec_sq: torch.Tensor,
-    upper_nodes: torch.Tensor,
-    nbr_vecs: torch.Tensor,
-    nbr_meta: torch.Tensor,
-    expand: int = 4,
+    expand: int = 2,
     max_steps: int | None = None,
-    n_seeds: int = 8,
+    use_pallas: bool = False,
+    descent_ef: int = 16,
+    n_seeds: int = 4,
+    descent_steps: int | None = None,
+    traversal_vectors: torch.Tensor | None = None,
+    descent: str = "beam",  # "beam" | "mxu"
+    upper_vecs: torch.Tensor | None = None,  # required for descent="mxu"
+    upper_vec_sq: torch.Tensor | None = None,
+    upper_nodes: torch.Tensor | None = None,  # slot -> node map matching
+    # upper_vecs' row count; defaults to the full state.upper_node
+    nbr_vecs: torch.Tensor | None = None,  # neighborhood layout (make_
+    nbr_scale: torch.Tensor | None = None,  # neighborhood_tables: i8 tiles,
+    nbr_sq: torch.Tensor | None = None,  # dequant scales, squared norms)
+    nbr_meta: torch.Tensor | None = None,  # fused_beam.pack_meta rows
+    pallas_beam: bool = False,  # the fused beam kernel K1
+    hop_rerank: int = 0,  # expand the top-`hop_rerank` results one hop
+    # at the finish and merge exactly (see _finish_search)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """End-to-end ANN search through the fused beam kernel. Returns
-    (scores [B, k] ascending exact index-metric values, ids [B, k] slot
-    ids with -1 fill, n_dist [])."""
-    ef_eff = max(ef, k)
-    check_fused_gate(ef_eff, expand)
+    """End-to-end ANN search. Returns (scores [B, k] ascending exact
+    index-metric values, ids [B, k] slot ids with -1 fill, n_dist []).
+
+    traversal_vectors, if given, is a reduced-precision (bf16) copy of
+    ``vectors`` used for descent + beam scoring only; the final rerank
+    always reads the f32 store so emitted distances stay exact.
+
+    descent="mxu" routes through one exact product over all upper-level
+    nodes (mxu_descent) instead of the level-1 beam walk; upper_vecs /
+    upper_vec_sq must then hold the upper-slot vector table.
+
+    With ``pallas_beam`` and the neighborhood layout the base beam runs
+    in kernel K1 while ef <= 128 and expand <= 8; wider searches, and
+    indexes without the layout, run ``beam_search``."""
     queries = queries.float()
     q_sq = (queries * queries).sum(-1)
-    seeds, n_dist0 = mxu_descent(upper_vecs, upper_vec_sq, upper_nodes,
-                                 state.entry_node, queries, metric, n_seeds)
-    seed_s, seed_i = seed_beam(vectors, vec_sq, seeds, queries, q_sq, metric,
-                               ef_eff)
-    # recall saturates by ef/2 steps (measured in the JAX package), so the
-    # fixed-trip kernel needs no early exit and search no host sync
-    steps = max_steps if max_steps is not None else max(8, ef_eff // 2)
-    m0 = state.neighbors0.shape[1]
-    scores, ids, n_dist1, _n_exp = fused_beam_search(
-        queries, q_sq, seed_s, seed_i, nbr_meta, nbr_vecs,
-        ef=ef_eff, expand=expand, m0=m0, d=queries.shape[1],
-        max_steps=steps, metric=metric)
-    n_dist = n_dist0 + n_dist1 + (seeds >= 0).sum()
+    trav = vectors if traversal_vectors is None else traversal_vectors
+    if descent == "mxu":
+        seeds, n_dist0 = mxu_descent(
+            upper_vecs, upper_vec_sq,
+            state.upper_node if upper_nodes is None else upper_nodes,
+            state.entry_node, queries, metric, n_seeds)
+    elif descent == "beam":
+        seeds, n_dist0 = beam_descent(
+            state, trav, vec_sq, queries, q_sq, metric,
+            descent_ef=descent_ef, n_seeds=n_seeds,
+            descent_steps=descent_steps)
+    else:
+        raise ValueError(f"descent must be 'mxu' or 'beam', got {descent!r}")
+    ef_eff = max(ef, k)
+    finish = dict(hop=hop_rerank, neighbors0=state.neighbors0,
+                  nbr_vecs=nbr_vecs, nbr_scale=nbr_scale, nbr_sq=nbr_sq)
+    if (pallas_beam and nbr_vecs is not None and nbr_meta is not None
+            and ef_eff <= FUSED_MAX_EF and expand <= FUSED_MAX_EXPAND):
+        seed_s, seed_i = seed_beam(vectors, vec_sq, seeds, queries, q_sq,
+                                   metric, ef_eff)
+        # recall saturates by ef/2 steps (measured in the JAX package), so
+        # the fixed-trip kernel needs no early exit and search no host sync
+        steps = max_steps if max_steps is not None else max(8, ef_eff // 2)
+        m0 = state.neighbors0.shape[1]
+        scores, ids, n_dist1, _n_exp = fused_beam_search(
+            queries, q_sq, seed_s, seed_i, nbr_meta, nbr_vecs,
+            ef=ef_eff, expand=expand, m0=m0, d=queries.shape[1],
+            max_steps=steps, metric=metric)
+        n_dist = n_dist0 + n_dist1 + (seeds >= 0).sum()
+        return _finish_search(vectors, vec_sq, valid_mask, queries, q_sq,
+                              metric, k, scores, ids, n_dist, **finish)
+    scores, ids, n_dist1 = beam_search(
+        state, trav, vec_sq, queries, q_sq, seeds, ef_eff, metric, level=0,
+        expand=expand, max_steps=max_steps, use_pallas=use_pallas,
+        nbr_vecs=nbr_vecs, nbr_scale=nbr_scale, nbr_sq=nbr_sq)
     return _finish_search(vectors, vec_sq, valid_mask, queries, q_sq, metric,
-                          k, scores, ids, n_dist)
+                          k, scores, ids, n_dist0 + n_dist1, **finish)
+
+
+def _sort_score_then_high_id(scores, ids, k):
+    """The first k of (score ascending, id descending). Torch has no
+    two-key sort, so: a stable sort by id descending, then a stable
+    sort by score."""
+    by_id = torch.sort(-ids, dim=1, stable=True).indices
+    scores = torch.gather(scores, 1, by_id)
+    ids = torch.gather(ids, 1, by_id)
+    out_s, order = torch.sort(scores, dim=1, stable=True)
+    out_s = out_s[:, :k]
+    out_i = torch.gather(ids, 1, order[:, :k])
+    return out_s, torch.where(out_s >= INF_SCORE, -1, out_i)
 
 
 def _finish_search(vectors, vec_sq, valid_mask, queries, q_sq, metric, k,
-                   scores, ids, n_dist):
+                   scores, ids, n_dist, hop=0, neighbors0=None,
+                   nbr_vecs=None, nbr_scale=None, nbr_sq=None):
     """Tombstone filter, then exact f32 rerank. Deterministic tie order:
-    equal exact distances resolve to the higher slot id. Torch has no
-    two-key sort, so: a stable sort by id descending, then a stable sort
-    by score."""
+    equal exact distances resolve to the higher slot id.
+
+    hop > 0 adds a one-hop rerank expansion: score the NEIGHBORS of the
+    top-hop results (through the int8 tiles when the layout is given,
+    else by gathers from the store), keep the best 16 that are new, live
+    and distinct, rescore those exactly and merge them into the top-k."""
     live = valid_mask[ids.clamp_min(0).long()] & (ids >= 0)
     exact = gather_scores(vectors, vec_sq, ids, queries, q_sq, metric)
     exact = torch.where(live & (scores < INF_SCORE), exact, INF_SCORE)
-    by_id = torch.sort(-ids, dim=1, stable=True).indices
-    exact = torch.gather(exact, 1, by_id)
-    ids = torch.gather(ids, 1, by_id)
-    out_s, order = torch.sort(exact, dim=1, stable=True)
-    out_s = out_s[:, :k]
-    out_i = torch.gather(ids, 1, order[:, :k])
-    return out_s, torch.where(out_s >= INF_SCORE, -1, out_i), n_dist
+    out_s, out_i = _sort_score_then_high_id(exact, ids, k)
+    if not hop:
+        return out_s, out_i, n_dist
+    b = queries.shape[0]
+    h = min(int(hop), k)
+    src = out_i[:, :h]
+    safe_src = src.clamp_min(0).long()
+    nbrs = torch.where((src >= 0)[:, :, None], neighbors0[safe_src], -1)
+    cand = nbrs.reshape(b, -1)  # [B, h*M0]
+    if nbr_vecs is not None:
+        # the tiles of nbr_vecs[src] ARE the vectors of neighbors0[src],
+        # column-aligned with `cand`
+        q_i8, q_scale = quantize_queries_i8(queries)
+        s_c = _int8_tile_scores(nbr_vecs, nbr_scale, nbr_sq, safe_src, q_i8,
+                                q_scale, q_sq, metric)
+    else:
+        s_c = gather_scores(vectors, vec_sq, cand, queries, q_sq, metric)
+    # mask BEFORE selecting: the top results are each other's neighbors,
+    # so without it the best by score are mostly ids already returned
+    in_out = (cand[:, :, None] == out_i[:, None, :]).any(dim=2)
+    sorted_c, order_c = torch.sort(cand, dim=1, stable=True)
+    dup_sorted = torch.cat(
+        [torch.zeros((b, 1), dtype=torch.bool, device=cand.device),
+         sorted_c[:, 1:] == sorted_c[:, :-1]], 1)
+    dup = torch.zeros_like(dup_sorted).scatter_(1, order_c, dup_sorted)
+    live_c = valid_mask[cand.clamp_min(0).long()]
+    keep = (cand >= 0) & live_c & ~in_out & ~dup
+    s_c = torch.where(keep, s_c, INF_SCORE)
+    n_dist = n_dist + (cand >= 0).sum()
+    top_s, pos = smallest_k(s_c, min(16, cand.shape[1]))
+    cand_r = torch.gather(cand, 1, pos)  # [B, r]
+    ok_r = (top_s < INF_SCORE) & (cand_r >= 0)
+    exact_r = gather_scores(vectors, vec_sq, cand_r, queries, q_sq, metric)
+    m_s = torch.cat([out_s, torch.where(ok_r, exact_r, INF_SCORE)], 1)
+    m_i = torch.cat([out_i, torch.where(ok_r, cand_r, -1)], 1)
+    out_s, out_i = _sort_score_then_high_id(m_s, m_i, k)
+    return out_s, out_i, n_dist

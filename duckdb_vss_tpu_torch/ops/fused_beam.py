@@ -25,24 +25,19 @@ replica of the JAX package's test oracle, tests/test_pallas_beam.py).
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from duckdb_vss_tpu_torch.ops import cuda_build
+from duckdb_vss_tpu_torch.ops.cuda_build import (MAX_SMEM_BYTES, METRIC_CODE,
+                                                check_tensor)
 from duckdb_vss_tpu_torch.utils.config import MetricKind
 from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
 
 _EPS = 1e-30
-# shared memory one block may use on Hopper (227 KB of the SM's 256 KB)
-MAX_SMEM_BYTES = 232_448
-_METRIC_CODE = {MetricKind.L2SQ: 0, MetricKind.IP: 1, MetricKind.COSINE: 2}
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_beam.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-LIBRARY = BUILD_DIR / "libfused_beam.so"
+KERNEL = "fused_beam"
+SOURCE = cuda_build.source_path(KERNEL)
 _lib: ctypes.CDLL | None = None
 
 
@@ -170,34 +165,12 @@ def beam_search_plain(
 beam_search_plain.calls = 0
 
 
-def build_library() -> str:
-    """Compile csrc/fused_beam.cu with nvcc for sm_90a into
-    build/kernels/libfused_beam.so. Returns nvcc's output, which holds
-    the ``-Xptxas -v`` register and shared-memory summary."""
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libfused_beam.{os.getpid()}.so"
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
-
-
 def _library() -> ctypes.CDLL:
     """The kernel library, built at first use in this process (or reused
     when it is newer than its source) and bound through ctypes."""
     global _lib
     if _lib is None:
-        if (not LIBRARY.exists()
-                or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime):
-            build_library()
-        lib = ctypes.CDLL(str(LIBRARY))
+        lib = cuda_build.load(KERNEL)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_beam_launch.argtypes = [p] * 9 + [i] * 9 + [p]
         lib.fused_beam_launch.restype = i
@@ -205,14 +178,6 @@ def _library() -> ctypes.CDLL:
         lib.fused_beam_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
-
-
-def _check_tensor(t, name, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
-                         f"{t.dtype} {tuple(t.shape)}")
-    if t.device != device or not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous on {device}")
 
 
 def fused_beam_search(
@@ -246,12 +211,12 @@ def fused_beam_search(
     cap, w = meta_packed.shape
     if w < 3 * m0:
         raise ValueError(f"meta rows hold {w} ints, need {3 * m0}")
-    _check_tensor(queries, "queries", torch.float32, (b, d), dev)
-    _check_tensor(q_sq, "q_sq", torch.float32, (b,), dev)
-    _check_tensor(seed_scores, "seed_scores", torch.float32, (b, ef), dev)
-    _check_tensor(seed_ids, "seed_ids", torch.int32, (b, ef), dev)
-    _check_tensor(meta_packed, "meta_packed", torch.int32, (cap, w), dev)
-    _check_tensor(nbr_vecs, "nbr_vecs", torch.int8, (cap, m0, d), dev)
+    check_tensor(queries, "queries", torch.float32, (b, d), dev)
+    check_tensor(q_sq, "q_sq", torch.float32, (b,), dev)
+    check_tensor(seed_scores, "seed_scores", torch.float32, (b, ef), dev)
+    check_tensor(seed_ids, "seed_ids", torch.int32, (b, ef), dev)
+    check_tensor(meta_packed, "meta_packed", torch.int32, (cap, w), dev)
+    check_tensor(nbr_vecs, "nbr_vecs", torch.int8, (cap, m0, d), dev)
     if nbr_vecs.data_ptr() % 16:
         raise ValueError("nbr_vecs must be 16-byte aligned")
     lib = _library()
@@ -264,7 +229,7 @@ def fused_beam_search(
             queries.data_ptr(), q_sq.data_ptr(), seed_scores.data_ptr(),
             seed_ids.data_ptr(), meta_packed.data_ptr(), nbr_vecs.data_ptr(),
             out_s.data_ptr(), out_i.data_ptr(), counts.data_ptr(),
-            b, ef, expand, m0, d, w, max_steps, _METRIC_CODE[metric],
+            b, ef, expand, m0, d, w, max_steps, METRIC_CODE[metric],
             smem_bytes(ef, expand, m0, d), stream)
     if rc != 0:
         raise RuntimeError("fused_beam kernel launch failed: "

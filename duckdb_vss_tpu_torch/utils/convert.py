@@ -20,14 +20,18 @@ GRAPH_FIELDS = GraphState._fields
 
 
 def index_from_arrays(arrays: dict[str, np.ndarray], config: HNSWConfig,
-                      device: str | torch.device = "cuda") -> HNSWIndex:
+                      device: str | torch.device = "cuda",
+                      **index_settings) -> HNSWIndex:
     """A port HNSWIndex holding ``arrays``: the four store fields, every
     GraphState field, and ``dims``. Optional ``_next_slot`` and
     ``_free_slots`` restore the store's slot allocator; by default the
-    next slot follows the highest live slot and the free-list is empty."""
+    next slot follows the highest live slot and the free-list is empty.
+    ``index_settings`` go to the HNSWIndex constructor (seed, layout,
+    build_batch, ...)."""
     vectors = np.asarray(arrays["_vectors"], np.float32)
     cap = vectors.shape[0]
-    idx = HNSWIndex(int(arrays["dims"]), config, capacity=cap, device=device)
+    idx = HNSWIndex(int(arrays["dims"]), config, capacity=cap, device=device,
+                    **index_settings)
     st = idx.store
     if st.capacity != cap or st.d_pad != vectors.shape[1]:
         raise ValueError(f"store shape {vectors.shape} is not a capacity "

@@ -1,4 +1,5 @@
-"""The port's slice as a whole: HNSWIndex bulk build + fused-beam search.
+"""The port's HNSWIndex as a whole: bulk build, fused-beam search, and
+the calls that leave the fused path.
 
 (a) a JAX-built index (fused layout) carried across with
     index_from_arrays: the port reaches the JAX package's recall on the
@@ -6,7 +7,9 @@
 (b) a port-built index end to end reaches the JAX package's recall bar;
 (c) tombstoned keys are never returned;
 (d) the entry points default to CUDA and raise without a card;
-(e) calls outside the slice raise NotImplementedError;
+(e) incremental add, ef > 128, expand > 8, hop_rerank and a layout over
+    the memory budget work and agree with the JAX package; bad settings
+    raise ValueError;
 (f) (gpu) the kernel check of chip_smoke.py on the card.
 """
 
@@ -56,18 +59,26 @@ def port_index():
     return idx, v, q
 
 
-def test_jax_graph_carried_across(port_index):
-    """(a) The port searches the JAX package's own bulk-built graph."""
+@pytest.fixture(scope="module")
+def jax_built():
+    """A JAX bulk-built index (fused layout, as on the chip), its state
+    as numpy arrays, and its data."""
     v, q = _clustered(2, 5000)
     keys = np.arange(5000, dtype=np.int64) * 2
     jidx = JHNSW(32, JConfig(), capacity=5000)
-    jidx.layout = "neighborhood"  # the fused path, as on the chip
+    jidx.layout = "neighborhood"
     jidx.add(v, keys)
     arrays = {f: np.asarray(getattr(jidx.store, f))
               for f in ("_vectors", "_vec_sq", "_valid", "_keys")}
     arrays.update({f: np.asarray(getattr(jidx.graph, f))
                    for f in GRAPH_FIELDS})
     arrays["dims"] = 32
+    return jidx, arrays, v, q, keys
+
+
+def test_jax_graph_carried_across(jax_built):
+    """(a) The port searches the JAX package's own bulk-built graph."""
+    jidx, arrays, v, q, keys = jax_built
     tidx = index_from_arrays(arrays, HNSWConfig(), device="cpu")
     assert len(tidx) == 5000 and tidx.store._key_to_slot[10] == 5
 
@@ -155,27 +166,60 @@ def test_default_device_is_cuda():
             FlatIndex(8)
 
 
-def test_out_of_slice_calls_raise(port_index):
-    """(e) What the later slices bring raises, and runs nothing else."""
-    idx, v, q = port_index
-    with pytest.raises(NotImplementedError, match="insert"):
-        idx.add(v[:10], np.arange(10) + 10**6)  # non-empty graph
-    assert len(idx) == 6000
-    small = HNSWIndex(32, device="cpu")
-    with pytest.raises(NotImplementedError, match="insert"):
-        small.add(v[:100], np.arange(100))  # below the bulk threshold
-    assert len(small) == 0
-    with pytest.raises(NotImplementedError, match="non-fused"):
-        idx.search(q, 10, ef=144)
-    with pytest.raises(NotImplementedError, match="non-fused"):
-        idx.search(q, 10, expand=16)
-    with pytest.raises(NotImplementedError, match="hop_rerank"):
-        idx.search(q, 10, hop_rerank=2)
-    over = HNSWIndex(32, capacity=6000, device="cpu")
-    over.add(v, np.arange(6000))
-    over.nbr_budget_bytes = 1 << 20
-    with pytest.raises(NotImplementedError, match="budget"):
-        over.search(q, 10)
+def test_out_of_slice_calls_raise(jax_built):
+    """(e) Calls that leave the fused kernel's path run, and agree with
+    the JAX package; only settings that name nothing raise."""
+    jidx, arrays, v, q, keys = jax_built
+    want = keys[_truth(v, q)]
+    tidx = index_from_arrays(arrays, HNSWConfig(), device="cpu")
+    # the step-by-step beam over the int8 tiles on both sides: wider than
+    # the fused kernel's gate, and the hop rerank
+    jidx.use_pallas_beam = tidx.use_pallas_beam = False
+    try:
+        for kw in (dict(ef=144), dict(expand=16), dict(hop_rerank=2)):
+            fused = fb.beam_search_plain.calls
+            _, jk = jidx.search(q, 10, **kw)
+            _, tk = tidx.search(q, 10, **kw)
+            assert fb.beam_search_plain.calls == fused, kw
+            np.testing.assert_array_equal(tk, jk, err_msg=str(kw))
+            assert recall_at_k(tk, want) >= 0.95, kw
+        tidx.use_pallas_beam = True
+        _, tk = tidx.search(q, 10, ef=144)  # above the gate all the same
+        assert fb.beam_search_plain.calls == fused
+        np.testing.assert_array_equal(tk, jidx.search(q, 10, ef=144)[1])
+        # a table over the memory budget: per-candidate gathers from the
+        # bf16 traversal copy, which is the JAX package's path on the CPU
+        tidx.nbr_budget_bytes = 1 << 20
+        jidx.layout = "auto"
+        assert tidx._neighborhood_tables() == (None,) * 4
+        _, jk = jidx.search(q, 10)
+        _, tk = tidx.search(q, 10)
+        assert fb.beam_search_plain.calls == fused
+        assert recall_at_k(tk, want) >= recall_at_k(jk, want) - 0.01
+        assert (tk == jk).mean() > 0.95  # bf16 products round differently
+    finally:
+        jidx.use_pallas_beam = True
+        jidx.layout = "neighborhood"
+    # one row into the built graph, on both sides
+    new = v[:1] + 0.01
+    for idx in (jidx, tidx):
+        idx.add(new, np.array([10**6]))
+    assert len(tidx) == len(jidx) == 5001
+    assert tidx.search(new, 1)[1][0, 0] == jidx.search(new, 1)[1][0, 0] == 10**6
+    # an index grown from nothing, below the bulk threshold
+    small = HNSWIndex(32, device="cpu", layout="flat", use_pallas=True)
+    small.add(v[:300], np.arange(300))
+    with pytest.raises(ValueError, match="traversal_dtype='f32'"):
+        small.search(v[:300], 1)  # the gather kernel takes no bf16 table
+    small.traversal_dtype = "f32"
+    _, tk = small.search(v[:300], 1)
+    # two batches into an empty graph link mostly through batch peers;
+    # tests/test_torch_insert.py holds that case against the JAX package
+    assert (tk[:, 0] == np.arange(300)).mean() >= 0.9
+    for bad in (dict(layout="tiles"), dict(traversal_dtype="f16"),
+                dict(descent="greedy")):
+        with pytest.raises(ValueError):
+            HNSWIndex(32, device="cpu", **bad)
 
 
 @pytest.mark.gpu

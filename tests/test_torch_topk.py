@@ -1,7 +1,13 @@
 """Port parity: blockwise top-k and FlatIndex against the JAX package.
 
-Exact paths: ids must be identical, including the tie order (lowest
-index first among equal scores), and scores within 1e-5."""
+Exact paths: scores within 1e-5 and the same ids. Tie order (lowest
+index first among equal scores) is held on data whose scores are exact
+in f32 (small integers), where both libraries must agree bit for bit.
+On float data, planted duplicate rows score within a few ulps of each
+other and their order rests on two GEMM libraries rounding every copy
+alike wherever it sits in their blocking, which no contract promises;
+there the ids are compared as sets within each group of reference
+scores closer than the tolerance."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -66,10 +72,34 @@ def _data(seed, n, d, b, ties):
     return q, v
 
 
-@pytest.mark.parametrize("metric", ["l2sq", "cosine", "ip"])
-@pytest.mark.parametrize("n,block_n", [(1024, 16384), (4096, 1024)])
-def test_flat_topk_matches_jax(metric, n, block_n):
-    q, v = _data(4, n, 32, 24, ties=True)
+TIE_TOL = 1e-5  # reference scores closer than this form one tie group
+
+
+def assert_same_ids_within_ties(got_i, want_i, want_s, tol=TIE_TOL):
+    """Row by row: split the reference's ascending scores into groups of
+    neighbours closer than ``tol``. A group that ends before the k-th
+    place must hold the same ids in both results, in any order. The
+    last group may be cut by k, and two libraries may keep different
+    members of it: there the ids must be distinct and new."""
+    k = want_s.shape[1]
+    for r, (g, w, s) in enumerate(zip(got_i.tolist(), want_i.tolist(),
+                                      want_s.tolist())):
+        start = 0
+        while start < k:
+            end = start + 1
+            while end < k and abs(s[end] - s[end - 1]) <= tol:
+                end += 1
+            if end < k:
+                assert set(g[start:end]) == set(w[start:end]), (r, start, end)
+            else:
+                tail = g[start:]
+                assert len(set(tail)) == len(tail), (r, tail)
+                assert not set(tail) & set(g[:start]), (r, tail)
+            start = end
+
+
+def _flat_topk_both(q, v, metric, block_n):
+    n = v.shape[0]
     valid = np.ones(n, bool)
     valid[::13] = False
     ws, wi = jt.flat_topk(jnp.asarray(q), jnp.asarray(v), 10, JMetric(metric),
@@ -77,9 +107,41 @@ def test_flat_topk_matches_jax(metric, n, block_n):
     gs, gi = tt.flat_topk(torch.from_numpy(q), torch.from_numpy(v), 10,
                           MetricKind(metric), valid=torch.from_numpy(valid),
                           block_n=block_n)
-    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
-    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-5,
-                               atol=1e-5)
+    return gs.numpy(), gi.numpy(), np.asarray(ws), np.asarray(wi)
+
+
+@pytest.mark.parametrize("metric", ["l2sq", "cosine", "ip"])
+@pytest.mark.parametrize("n,block_n", [(1024, 16384), (4096, 1024)])
+def test_flat_topk_matches_jax(metric, n, block_n):
+    q, v = _data(4, n, 32, 24, ties=True)
+    gs, gi, ws, wi = _flat_topk_both(q, v, metric, block_n)
+    np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-5)
+    assert_same_ids_within_ties(gi, wi, ws)
+    # rows without a planted duplicate have no ties: identical ids
+    np.testing.assert_array_equal(gi[8:], wi[8:])
+
+
+@pytest.mark.parametrize("metric", ["l2sq", "cosine", "ip"])
+@pytest.mark.parametrize("n,block_n", [(1024, 16384), (4096, 1024)])
+def test_flat_topk_tie_order_on_exact_scores(metric, n, block_n):
+    """Small-integer vectors: every product, norm and sum is exact in
+    f32, so equal rows score bit-equal within each library in any
+    blocking and the ids must be identical, ties to the lowest index,
+    across block boundaries too. The scores agree exactly for l2sq and
+    ip; cosine's division may round one ulp apart between the
+    libraries (atol 2e-7), alike for every copy of a row."""
+    rng = np.random.default_rng(8)
+    v = rng.integers(-2, 3, size=(n, 32)).astype(np.float32)
+    q = rng.integers(-2, 3, size=(24, 32)).astype(np.float32)
+    v[100:140] = v[7]
+    v[n - 30:n - 10] = v[9]  # copies in the last block as well
+    q[:4] = v[7]
+    q[4:8] = v[9]
+    gs, gi, ws, wi = _flat_topk_both(q, v, metric, block_n)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gs, ws, rtol=0,
+                               atol=2e-7 if metric == "cosine" else 0)
+    assert (np.diff(ws, axis=1) == 0).sum() > 24  # the data does tie
 
 
 @pytest.mark.parametrize("metric", ["l2sq", "cosine", "ip"])
