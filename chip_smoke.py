@@ -28,9 +28,19 @@ Phases (any failure raises and exits non-zero):
      inputs (id-set overlap >= 0.95, scores within rtol/atol 3e-3 where
      the ids agree: bf16 rounding of the products; equal n_dist and
      expansion counts): l2sq on the 1M tables (B=1024, ef 64, expand 4,
-     32 steps) and ef 128 / expand 8; ip and cosine on a random table;
+     32 steps) and ef 128 / expand 8; 4 steps, which end the queries
+     while they expand, and 96, which every query leaves early (the
+     kernel stops a query at its first step that selects nothing, the
+     plain version runs the trip count); ip and cosine on a random
+     table, and there also meta rows of 97 ints and expand 12 and 40;
      l2sq at the search chunk's shape (B=8192), where K1's time is then
-     taken beside its plain version's and its bound;
+     taken beside its plain version's and its bound, and once more at
+     ef 128 / expand 8. The bound counts what the function needs from
+     this run's counts: a meta row per live selection and one row of d
+     int8 per candidate kept; the time for whole tiles (what the kernel
+     copies, and what the bound counted before) is printed beside it.
+     Then each phase's share of a block's resident clocks
+     (tools/k1_phases.py, printed, not checked);
   5. main path 2, counts set to 0 before and read after: the insert,
      then (a) a fused search of the 10,000 queries and the inserted
      rows, recall@10 >= 0.95 against the flat scan over all 1,016,384
@@ -142,6 +152,31 @@ def compare_beam(name, args, kw):
     return err
 
 
+def early_exit_checks(args, kw):
+    """K1 against its plain version at a trip count that ends the
+    queries (at least 98% of the selections are live) and at one every
+    query leaves early (the kernel gives the same for twice as long)."""
+    import torch
+
+    from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search
+
+    b, e = args[0].shape[0], kw["expand"]
+    short, long = dict(kw, max_steps=4), dict(kw, max_steps=96)
+    err = compare_beam("1M-l2sq-4-steps", args, short)
+    n_exp = int(fused_beam_search(*args, **short)[3])
+    check(n_exp >= 0.98 * b * 4 * e, f"4 steps: only {n_exp} of "
+          f"{b * 4 * e} selections were live")
+    err = max(err, compare_beam("1M-l2sq-96-steps", args, long))
+    got = fused_beam_search(*args, **long)
+    twice = fused_beam_search(*args, **dict(kw, max_steps=192))
+    check(all(torch.equal(a, c) for a, c in zip(got, twice)),
+          "96 steps: a query was still expanding")
+    check(int(got[3]) < b * 96 * e, "96 steps: no selection was dead")
+    log(f"# K1 early exit: {int(got[3])} expansions in 96 steps "
+        f"({int(got[3]) / b / e:.1f} live steps a query), the same in 192")
+    return err
+
+
 def random_beam_inputs(device, n=16384, d=128, m0=32, b=1024, ef=64,
                        seed=0):
     """Kernel inputs on a random table and graph (for ip and cosine)."""
@@ -171,16 +206,45 @@ def random_beam_inputs(device, n=16384, d=128, m0=32, b=1024, ef=64,
 
 
 def kernel_checks_random(device):
-    """K1 against its plain version on random tables for ip and cosine
-    (also run by the gpu-marked test in tests/test_torch_hnsw.py)."""
+    """K1 against its plain version on random tables for ip and cosine,
+    for l2sq with meta rows of 97 ints: rows that do not start on
+    16-byte boundaries, which the kernel reads with plain loads instead
+    of bulk copies, and for expand 12 and 40 (more selections than the
+    search path asks for, and more than a warp has lanes to start their
+    copies) (also run by the gpu-marked test in
+    tests/test_torch_hnsw.py)."""
     from duckdb_vss_tpu_torch.utils.config import MetricKind
 
     errs = {}
+    args = random_beam_inputs(device)
+    kw = dict(ef=64, expand=4, m0=32, d=128, max_steps=32)
     for metric in (MetricKind.IP, MetricKind.COSINE):
-        args = random_beam_inputs(device)
-        kw = dict(ef=64, expand=4, m0=32, d=128, max_steps=32, metric=metric)
-        errs[metric.value] = compare_beam(f"random-{metric.value}", args, kw)
+        errs[metric.value] = compare_beam(f"random-{metric.value}", args,
+                                          dict(kw, metric=metric))
+    narrow = args[:4] + (args[4][:, :97].contiguous(), args[5])
+    errs["l2sq-97"] = compare_beam("random-l2sq-meta-rows-of-97", narrow,
+                                   dict(kw, metric=MetricKind.L2SQ))
+    errs["l2sq-e12"] = compare_beam(
+        "random-l2sq-expand-12", args,
+        dict(kw, expand=12, max_steps=12, metric=MetricKind.L2SQ))
+    few = args[:4] + (pack_few_neighbors(args[4], 32, 4), args[5][:, :4]
+                      .contiguous())
+    errs["l2sq-e40"] = compare_beam(
+        "random-l2sq-expand-40-m0-4", few,
+        dict(kw, expand=40, m0=4, max_steps=8, metric=MetricKind.L2SQ))
     return errs
+
+
+def pack_few_neighbors(meta, m0, keep):
+    """Meta rows of the first ``keep`` of m0 neighbors, repacked."""
+    import torch
+
+    from duckdb_vss_tpu_torch.ops.fused_beam import pack_meta
+
+    return pack_meta(meta[:, :keep],
+                     meta[:, m0:m0 + keep].contiguous().view(torch.float32),
+                     meta[:, 2 * m0:2 * m0 + keep].contiguous()
+                     .view(torch.float32))
 
 
 def path_beam_inputs(idx, queries_np, ef):
@@ -228,19 +292,25 @@ def search_stages(idx, qd, args, kw, k, search_ms, k1_ms):
         f"{uv.shape[0]} rows)")
 
 
-def beam_bound_ms(args, kw, n_expanded):
-    """Least time for the same work on the card: every live selection
-    reads one M0*d-byte int8 tile and its 3*M0 meta ints once; queries,
-    seeds and outputs move once. Two operations per tile byte (bf16
-    products) against the dense bf16 peak."""
+def beam_bound_ms(args, kw, n_expanded, n_dist):
+    """Least time for the same work on the card, from this run's counts:
+    every live selection reads its 3*M0 meta ints once, every candidate
+    the dedup keeps (n_dist of them: the only rows the function scores)
+    its d int8 once; queries, seeds and outputs move once. Two
+    operations per row byte (bf16 products) against the dense bf16
+    peak. Returns (ms, "bytes" or "operations", ms when every live
+    selection reads its whole M0*d-byte tile instead, which is what the
+    kernel copies and what this bound counted before the kernel scored
+    kept rows only)."""
     b, ef, m0, d = args[0].shape[0], kw["ef"], kw["m0"], kw["d"]
-    nbytes = (n_expanded * (m0 * d + 3 * m0 * 4)
-              + b * (d * 4 + 4 + ef * 8)  # queries, q_sq, seed beam
-              + b * ef * 8 + b * 8)  # output beam, counts
-    ops = n_expanded * m0 * d * 2
+    io = (b * (d * 4 + 4 + ef * 8)  # queries, q_sq, seed beam
+          + b * ef * 8 + b * 8)  # output beam, counts
+    nbytes = n_expanded * 3 * m0 * 4 + n_dist * d + io
+    ops = n_dist * d * 2
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                      else "operations")
+    tiles_ms = (n_expanded * (m0 * d + 3 * m0 * 4) + io) / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", tiles_ms * 1e3)
 
 
 def recall_of(got, want, k):
@@ -445,6 +515,7 @@ def main(argv=None) -> int:
     from duckdb_vss_tpu_torch.ops import cuda_build
     from duckdb_vss_tpu_torch.ops import fused_beam as fb
     from duckdb_vss_tpu_torch.ops import fused_gather as fg
+    from duckdb_vss_tpu_torch.tools import k1_phases
     from duckdb_vss_tpu_torch.utils.timing import device_time
 
     t_start = time.perf_counter()
@@ -544,19 +615,36 @@ def main(argv=None) -> int:
     kw128 = dict(kw, ef=128, expand=8, max_steps=64)
     err = max(err, compare_beam("1M-l2sq-ef128-e8",
                                 path_beam_inputs(idx, q[:1024], 128), kw128))
+    err = max(err, early_exit_checks(path_beam_inputs(idx, q[:1024], 64), kw))
     errs = kernel_checks_random(dev)
     args = path_beam_inputs(idx, q[:TIMED_B], 64)
     err = max([err, compare_beam("1M-l2sq-search-chunk", args, kw)]
               + list(errs.values()))
 
-    n_exp = int(fb.fused_beam_search(*args, **kw)[3])
-    k_ms = device_time(lambda: fb.fused_beam_search(*args, **kw), iters=10) * 1e3
+    def time_beam(args, kw):
+        """K1's time, its bound from this run's counts and the log line's
+        tail that states both bounds."""
+        _, _, n_dist, n_exp = fb.fused_beam_search(*args, **kw)
+        ms = device_time(lambda: fb.fused_beam_search(*args, **kw),
+                         iters=10) * 1e3
+        bound, by, tiles = beam_bound_ms(args, kw, int(n_exp), int(n_dist))
+        return ms, bound, by, tiles, (
+            f"bound {bound:.4f} ms ({by}: {int(n_exp)} meta rows, "
+            f"{int(n_dist)} kept rows), the kernel at {bound / ms:.1%} of "
+            f"it; with whole tiles read {tiles:.4f} ms, {tiles / ms:.1%}")
+
+    k_ms, bound_ms, bound_by, tiles_ms, tail = time_beam(args, kw)
     p_ms = device_time(lambda: fb.beam_search_plain(*args, **kw), iters=3) * 1e3
-    bound_ms, bound_by = beam_bound_ms(args, kw, n_exp)
-    log(f"# K1 at B={TIMED_B}, ef 64, expand 4, 32 steps: {k_ms:.3f} ms; plain "
-        f"{p_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, {n_exp} live "
-        f"expansions); {bound_ms / k_ms:.1%} of the bound")
+    log(f"# K1 on {smi} at B={TIMED_B}, ef 64, expand 4, 32 steps: "
+        f"{k_ms:.3f} ms; plain {p_ms:.3f} ms; {tail}")
+    clocks, shares = k1_phases.phase_shares(args, kw)
+    log(f"# K1 phases at that shape ({clocks:.0f} clocks resident a block): "
+        + ", ".join(f"{name} {share:.1%}" for name, share in shares.items()))
     search_stages(idx, qd, args, kw, k, dev_s * 1e3, k_ms)
+    args = path_beam_inputs(idx, q[:TIMED_B], 128)
+    k128_ms, _, _, _, tail = time_beam(args, kw128)
+    log(f"# K1 on {smi} at B={TIMED_B}, ef 128, expand 8, 64 steps: "
+        f"{k128_ms:.3f} ms; {tail}")
     del args
 
     # ---- 5. main path 2: incremental insert, then both searches ---------
@@ -671,6 +759,7 @@ def main(argv=None) -> int:
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_whole_tiles_ms": tiles_ms,
         "library_ms": None,
     }, {
         "name": "gather_scores",

@@ -34,12 +34,13 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
-def _nvcc_command(name: str, out: Path) -> list[str]:
+def nvcc_command(source: Path, out: Path) -> list[str]:
+    """The one nvcc line every kernel of the package is built with."""
     nvcc = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(out), str(source_path(name))]
+            "-o", str(out), str(source)]
 
 
 def build(names: list[str]) -> dict[str, str]:
@@ -51,7 +52,7 @@ def build(names: list[str]) -> dict[str, str]:
     procs = []
     for name in names:
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
-        cmd = _nvcc_command(name, tmp)
+        cmd = nvcc_command(source_path(name), tmp)
         procs.append((name, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

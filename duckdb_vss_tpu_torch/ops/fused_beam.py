@@ -2,18 +2,23 @@
 PyTorch version (port of duckdb_vss_tpu/ops/pallas_beam.py).
 
 ``fused_beam_search`` runs the whole base-layer beam search for a batch
-of queries, for a fixed number of steps. Each step, per query:
+of queries, for at most ``max_steps`` steps. Each step, per query:
   1. pick the E best unexpanded beam entries (E argmin passes, ties to
-     the lowest position);
+     the lowest position: on an ascending beam, the first E positions
+     that are unexpanded and finite);
   2. fetch each one's packed meta row (pack_meta: M0 neighbor ids, M0
      dequant scales, M0 squared norms) and its int8 [M0, D] neighbor
      tile (graph.make_neighborhood_tables);
-  3. score int8 x bf16(q) products (rounded to bf16) summed in f32,
-     times the scale, then the metric epilogue;
+  3. score int8 x bf16(q) products (rounded to bf16) summed in f32 in
+     the order of ``ordered_row_sum``, times the scale, then the metric
+     epilogue;
   4. drop id < 0, dead selections, ids already in the beam and repeats
      within the block (first copy kept);
   5. merge with the ascending beam and keep the top ef (stable: beam
      entries before candidates, candidates in block order).
+A step that selects nothing changes nothing, and neither does any step
+after it: the kernel stops there, the plain version runs the fixed trip
+count, and the two agree.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (csrc/fused_beam.cu, built with nvcc for sm_90a at first use into
@@ -60,14 +65,17 @@ def pack_meta(neighbors0: torch.Tensor, nbr_scale: torch.Tensor,
 def smem_bytes(ef: int, expand: int, m0: int, d: int) -> int:
     """Dynamic shared memory of one kernel block, the layout that
     fused_beam.cu carves out of what the wrapper passes it: the E int8
-    tiles, then 4-byte words for the query, the pool (beam +
-    candidates: scores, ids, expanded flags), the merge output, the
-    selection keys, the raw candidate ids, the E meta rows and a few
+    tiles, the E staged meta rows (16-byte multiples), the query in
+    bf16, the survivors' 8-byte keys and the two copy barriers, then
+    4-byte words: the dedup's hash table (ids and positions, more than
+    ef + C slots each), two beams (scores, ids, expanded flags), the
+    survivors' ids, the kept list, the selected nodes and a few
     counters."""
     c = expand * m0
-    p = ef + c
-    words = d + 3 * p + 4 * ef + c + 3 * c + 2 * expand + 4
-    return expand * m0 * d + 4 * words
+    meta_row = (3 * m0 + 3) // 4 * 4
+    slots = 1 << (ef + c).bit_length()
+    words = 2 * slots + 6 * ef + 2 * c + expand + 4
+    return c * d + expand * meta_row * 4 + 2 * d + 8 * (c + 2) + 4 * words
 
 
 def check_kernel_shapes(ef: int, expand: int, m0: int, d: int) -> None:
@@ -75,13 +83,107 @@ def check_kernel_shapes(ef: int, expand: int, m0: int, d: int) -> None:
     if ef < 1 or expand < 1 or m0 < 1 or expand > ef:
         raise ValueError(f"bad beam shape ef={ef} expand={expand} m0={m0}")
     if d % 16:
-        raise ValueError(f"d={d} must be a multiple of 16 (int4 tile loads)")
+        raise ValueError(f"d={d} must be a multiple of 16 (16-byte tile "
+                         "copies and loads)")
     need = smem_bytes(ef, expand, m0, d)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f"fused beam needs {need} bytes of shared memory for ef={ef}, "
             f"expand={expand}, M0={m0}, d_pad={d}; a Hopper block has "
             f"{MAX_SMEM_BYTES}")
+
+
+def ordered_row_sum(p: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis of p [..., d] (f32, d a multiple of 16) in
+    one stated order, add for add the order of the kernel's eight lanes
+    a row, so that both give the same bits on any device and any build.
+    The axis is cut into runs of 128 (the last one padded with zeros,
+    which change no sum); lane l of 8 owns the 16 elements at 16 * l of
+    every run; its accumulator i of 4 starts at 0 and adds the lane's
+    elements 4 * i .. 4 * i + 3 of each run one after the other; the
+    lane's sum is (a0 + a1) + (a2 + a3); the lanes add as a butterfly:
+    l with l + 4, then l with l + 2, then 0 with 1."""
+    p = torch.nn.functional.pad(p, (0, -p.shape[-1] % 128))
+    p = p.reshape(*p.shape[:-1], -1, 8, 4, 4)  # [.., run, lane, acc, elem]
+    acc = torch.zeros_like(p[..., 0, :, :, 0])
+    for run in range(p.shape[-4]):
+        for elem in range(4):
+            acc = acc + p[..., run, :, :, elem]
+    t = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+    t = t[..., :4] + t[..., 4:]
+    t = t[..., :2] + t[..., 2:]
+    return t[..., 0] + t[..., 1]
+
+
+def plain_select(beam_s: torch.Tensor, beam_e: torch.Tensor, expand: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Step 1 of the plain version: E argmin passes over the unexpanded
+    finite entries. Returns (pos [B, E], ok [B, E], the flags with the
+    live selections marked)."""
+    ef_pos = torch.arange(beam_s.shape[1], device=beam_s.device)[None]
+    key = torch.where(beam_e | (beam_s >= INF_SCORE), INF_SCORE, beam_s)
+    sel_pos, sel_ok = [], []
+    for _e in range(expand):
+        pos = torch.argmin(key, dim=1)  # first minimum, as jnp.argmin
+        hit = ef_pos == pos[:, None]
+        ok = torch.gather(key, 1, pos[:, None])[:, 0] < INF_SCORE
+        sel_pos.append(pos)
+        sel_ok.append(ok)
+        beam_e = beam_e | (hit & ok[:, None])
+        key = torch.where(hit, INF_SCORE, key)
+    return torch.stack(sel_pos, 1), torch.stack(sel_ok, 1), beam_e
+
+
+def plain_merge(beam_s, beam_i, beam_e, cand_s, cand_i, ef: int):
+    """Step 5 of the plain version: the first ef of the stable sort of
+    [beam, candidates] by score (dropped candidates carry INF_SCORE).
+    Returns the new (scores, ids, expanded flags)."""
+    pool_s = torch.cat([beam_s, cand_s], 1)
+    pool_i = torch.cat([beam_i, cand_i], 1)
+    pool_e = torch.cat([beam_e, torch.zeros_like(cand_s, dtype=torch.bool)],
+                       1)
+    new_s, order = torch.sort(pool_s, dim=1, stable=True)
+    order = order[:, :ef]
+    new_s = new_s[:, :ef]
+    new_i = torch.where(new_s >= INF_SCORE, -1, torch.gather(pool_i, 1, order))
+    return new_s, new_i, torch.gather(pool_e, 1, order)
+
+
+def plain_step(beam_s, beam_i, beam_e, q_bf, q_sq, nbr_tbl, scale_tbl, sq_tbl,
+               nbr_vecs, *, ef: int, expand: int, m0: int, d: int,
+               metric: MetricKind):
+    """One step of the plain version. Returns the new (scores, ids,
+    expanded flags), the candidates kept per query [B] and the live
+    selections per query [B]."""
+    b = beam_s.shape[0]
+    c = expand * m0
+    pos, sel_ok, beam_e = plain_select(beam_s, beam_e, expand)
+    picked = torch.gather(beam_i, 1, pos)
+    sel = torch.where(sel_ok, picked, 0).clamp_min(0).long()  # [B, E]
+    nb = nbr_tbl[sel].reshape(b, c)
+    vs = scale_tbl[sel].reshape(b, c)
+    vq = sq_tbl[sel].reshape(b, c)
+    cand = nbr_vecs[sel].reshape(b, c, d).to(torch.bfloat16)
+    dot = ordered_row_sum((cand * q_bf[:, None, :]).float()) * vs
+    if metric == MetricKind.L2SQ:
+        s_new = torch.clamp_min(q_sq[:, None] - 2.0 * dot + vq, 0.0)
+    elif metric == MetricKind.IP:
+        s_new = 1.0 - dot
+    else:
+        qz = q_sq[:, None] <= 0.0
+        vz = vq <= 0.0
+        denom = torch.sqrt(q_sq[:, None] * vq)
+        s_new = 1.0 - dot / torch.clamp_min(denom, _EPS)
+        s_new = torch.where(qz | vz, 1.0, s_new)
+        s_new = torch.where(qz & vz, 0.0, s_new)
+    sel_valid = sel_ok[:, :, None].expand(b, expand, m0).reshape(b, c)
+    in_beam = (nb[:, :, None] == beam_i[:, None, :]).any(dim=2)
+    dup_new = torch.triu(nb[:, :, None] == nb[:, None, :], 1).any(dim=1)
+    keep = (nb >= 0) & sel_valid & ~in_beam & ~dup_new
+    beam_s, beam_i, beam_e = plain_merge(
+        beam_s, beam_i, beam_e, torch.where(keep, s_new, INF_SCORE),
+        torch.where(keep, nb, -1), ef)
+    return beam_s, beam_i, beam_e, keep.sum(1), sel_ok.sum(1)
 
 
 def beam_search_plain(
@@ -99,66 +201,29 @@ def beam_search_plain(
     max_steps: int,
     metric: MetricKind,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel's algorithm in plain PyTorch. Returns (scores [B, ef],
-    ids [B, ef], n_dist [], n_expanded []): n_dist counts the candidates
-    kept, n_expanded the live selections (each one reads a tile)."""
+    """The kernel's algorithm in plain PyTorch, for the fixed trip count.
+    The seed beam must be ascending (graph.seed_beam sorts it): the
+    kernel selects and merges by position and relies on it. Returns
+    (scores [B, ef], ids [B, ef], n_dist [], n_expanded []): n_dist
+    counts the candidates kept, n_expanded the live selections (each
+    one reads a tile)."""
     beam_search_plain.calls += 1
     b = queries.shape[0]
-    c = expand * m0
-    nbr_tbl = meta_packed[:, :m0]
-    scale_tbl = meta_packed[:, m0:2 * m0].contiguous().view(torch.float32)
-    sq_tbl = meta_packed[:, 2 * m0:3 * m0].contiguous().view(torch.float32)
+    tables = (meta_packed[:, :m0],
+              meta_packed[:, m0:2 * m0].contiguous().view(torch.float32),
+              meta_packed[:, 2 * m0:3 * m0].contiguous().view(torch.float32),
+              nbr_vecs)
     q_bf = queries.to(torch.bfloat16)
     beam_s, beam_i = seed_scores, seed_ids
     beam_e = torch.zeros((b, ef), dtype=torch.bool, device=queries.device)
-    ef_pos = torch.arange(ef, device=queries.device)[None]
     n_dist = torch.zeros((), dtype=torch.int64, device=queries.device)
     n_exp = torch.zeros((), dtype=torch.int64, device=queries.device)
     for _ in range(max_steps):
-        key = torch.where(beam_e | (beam_s >= INF_SCORE), INF_SCORE, beam_s)
-        sel_ids, sel_ok = [], []
-        for _e in range(expand):
-            pos = torch.argmin(key, dim=1)  # first minimum, as jnp.argmin
-            hit = ef_pos == pos[:, None]
-            ok = torch.gather(key, 1, pos[:, None])[:, 0] < INF_SCORE
-            picked = torch.gather(beam_i, 1, pos[:, None])[:, 0]
-            sel_ids.append(torch.where(ok, picked, 0))
-            sel_ok.append(ok)
-            beam_e = beam_e | (hit & ok[:, None])
-            key = torch.where(hit, INF_SCORE, key)
-        sel = torch.stack(sel_ids, 1).clamp_min(0).long()  # [B, E]
-        sel_ok = torch.stack(sel_ok, 1)
-        n_exp = n_exp + sel_ok.sum()
-        nb = nbr_tbl[sel].reshape(b, c)
-        vs = scale_tbl[sel].reshape(b, c)
-        vq = sq_tbl[sel].reshape(b, c)
-        cand = nbr_vecs[sel].reshape(b, c, d).to(torch.bfloat16)
-        dot = (cand * q_bf[:, None, :]).float().sum(-1) * vs
-        if metric == MetricKind.L2SQ:
-            s_new = torch.clamp_min(q_sq[:, None] - 2.0 * dot + vq, 0.0)
-        elif metric == MetricKind.IP:
-            s_new = 1.0 - dot
-        else:
-            qz = q_sq[:, None] <= 0.0
-            vz = vq <= 0.0
-            denom = torch.sqrt(q_sq[:, None] * vq)
-            s_new = 1.0 - dot / torch.clamp_min(denom, _EPS)
-            s_new = torch.where(qz | vz, 1.0, s_new)
-            s_new = torch.where(qz & vz, 0.0, s_new)
-        sel_valid = sel_ok[:, :, None].expand(b, expand, m0).reshape(b, c)
-        in_beam = (nb[:, :, None] == beam_i[:, None, :]).any(dim=2)
-        dup_new = torch.triu(nb[:, :, None] == nb[:, None, :], 1).any(dim=1)
-        keep = (nb >= 0) & sel_valid & ~in_beam & ~dup_new
-        n_dist = n_dist + keep.sum()
-        pool_s = torch.cat([beam_s, torch.where(keep, s_new, INF_SCORE)], 1)
-        pool_i = torch.cat([beam_i, torch.where(keep, nb, -1)], 1)
-        pool_e = torch.cat([beam_e, torch.zeros_like(keep)], 1)
-        new_s, order = torch.sort(pool_s, dim=1, stable=True)
-        order = order[:, :ef]
-        beam_s = new_s[:, :ef]
-        beam_i = torch.where(beam_s >= INF_SCORE, -1,
-                             torch.gather(pool_i, 1, order))
-        beam_e = torch.gather(pool_e, 1, order)
+        beam_s, beam_i, beam_e, kept, live = plain_step(
+            beam_s, beam_i, beam_e, q_bf, q_sq, *tables, ef=ef,
+            expand=expand, m0=m0, d=d, metric=metric)
+        n_dist = n_dist + kept.sum()
+        n_exp = n_exp + live.sum()
     return beam_s, beam_i, n_dist, n_exp
 
 
@@ -196,8 +261,10 @@ def fused_beam_search(
     metric: MetricKind,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused beam search. Returns (scores [B, ef], ids [B, ef], n_dist [],
-    n_expanded []). CPU tensors run beam_search_plain; CUDA tensors
-    launch kernel K1 (one thread block per query) or raise."""
+    n_expanded []). The seed beam must be ascending, INF padded. CPU
+    tensors run beam_search_plain; CUDA tensors launch kernel K1 (one
+    thread block per query, which stops at the first step that selects
+    nothing) or raise."""
     kw = dict(ef=ef, expand=expand, m0=m0, d=d, max_steps=max_steps,
               metric=metric)
     dev = queries.device
