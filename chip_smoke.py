@@ -8,7 +8,10 @@ Path 2: HNSWIndex.add of 16,384 further rows into the built graph
 (incremental insert, 64 batches of 256 through the int8 layout), then
 HNSWIndex.search once through the fused beam and once with
 layout="flat", traversal_dtype="f32", use_pallas=True: the step-by-step
-beam, whose per-step scoring is kernel K2. The configuration is the
+beam, whose per-step scoring is kernel K2. Path 3: removals, isolate,
+compact, stats, save and load, a bf16 store, the query transfer dtypes,
+the augmented table, cluster, join and the stashed flat scan on that
+index (phase 8 below). The configuration is the
 SIFT1M shape of ann-benchmarks' sift-128-euclidean: 1,000,000 x 128 f32
 base vectors and 10,000 queries, k=10, l2sq, with the HNSW defaults
 M=16, M0=32, ef_construction=128, ef_search=64. The data is SIFT-shaped
@@ -57,7 +60,22 @@ Phases (any failure raises and exits non-zero):
      byte bound;
   7. one more insert batch under torch.profiler, as one search_device
      call of each path before it: device kernels per call and the card's
-     busy share (printed, not checked).
+     busy share (printed, not checked);
+  8. main path 3 on that index, counts set to 0 before and read after
+     (path3): remove every tenth key and the profiled batch, search
+     (recall@10 >= 0.95 against the flat scan of the live rows, no
+     removed key returned); isolate (then no edge into a tombstone) and
+     search; compact and stats (level-0 nodes = live rows) and search
+     through K1 on the rebuilt tables; save_index on the native
+     container, load_index lazy and eager and load_index_from_buffer:
+     each loaded index returns the same keys and scores as before the
+     save; a bf16 store of the 1M base rows, bulk built (recall >=
+     0.95); queries sent as bf16 and as int8 (recall >= 0.95 each); the
+     flat layout with and without the augmented table at ef 64 (recall
+     >= 0.95); cluster at level 1 (heads of level >= 1, exact scores);
+     join of a 10,000-row held-out index (no blocking pair); the stashed
+     flat scan of 1,024 queries equal to the per-block scan. K1
+     launched, its plain version never.
 
 The line before the last is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Run from the repository
@@ -84,6 +102,8 @@ TIMED_B = 8192  # search_device's timed batch and the kernels' timed shape
 N_INSERT = 16_384  # rows added incrementally: 64 batches of 256
 MIN_SELF_RECALL = 0.99  # an inserted row is its own nearest neighbor
 GATHER_TOL = 1e-4  # K2 vs plain, relative to the scores' scale
+# the first 8 bytes of a native index file (VSS_MAGIC, native/vss_store.cpp)
+NATIVE_MAGIC = (0x30315550_54535356).to_bytes(8, "little")
 
 
 def log(msg: str) -> None:
@@ -482,6 +502,269 @@ def profile_on_card(what, fn, smi):
         f"most device time by operator: {names}")
 
 
+def timed(dev, fn):
+    """(fn(), seconds) on the host clock, the card synchronized before
+    and after."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def blocking_pairs(matches, men_keys, pref_s, pref_k):
+    """Pairs (proposer m, candidate w in m's list) that prefer each other
+    over their partners: m ranks w before his partner (or has none) and
+    w's partner is farther from her than m (or she has none). A stable
+    matching has none."""
+    import numpy as np
+
+    row = {int(m): i for i, m in enumerate(men_keys)}
+
+    def score_of(m, w):
+        i = row[m]
+        hit = np.nonzero(pref_k[i] == w)[0]
+        return float(pref_s[i, hit[0]]) if len(hit) else np.inf
+
+    partner = {w: score_of(m, w) for m, w in matches.items()}
+    n_bad = 0
+    for m in row:
+        mine = score_of(m, matches[m]) if m in matches else np.inf
+        for s, w in zip(pref_s[row[m]], pref_k[row[m]]):
+            if w >= 0 and s < mine and partner.get(int(w), np.inf) > s:
+                n_bad += 1
+    return n_bad
+
+
+def path3(idx, all_vecs, extra_keys, q, n_base, want_base, make_rows, smi,
+          k=K, n_join=10_000, n_stash_q=1024, timed_b=TIMED_B):
+    """Main path 3, everything a user does with one index after CREATE
+    INDEX and INSERT: remove, isolate, compact, stats, save and load
+    (lazy, eager, from a buffer), a bf16 store, bf16 and int8 query
+    transfers, the augmented table, cluster, join and the stashed flat
+    scan. ``all_vecs`` holds the rows of keys 0..len-1, ``extra_keys``
+    further live keys (removed here too), ``want_base`` the exact top-k
+    keys of ``q`` among the first ``n_base`` rows, ``make_rows(n)`` draws
+    n more rows from the data's generator. Raises on any failed check;
+    returns what it measured."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from duckdb_vss_tpu_torch import MetricKind
+    from duckdb_vss_tpu_torch.models.flat import FlatIndex
+    from duckdb_vss_tpu_torch.models.hnsw import HNSWIndex
+    from duckdb_vss_tpu_torch.ops.topk import flat_topk, flat_topk_stashed
+    from duckdb_vss_tpu_torch.utils import persist
+    from duckdb_vss_tpu_torch.utils.timing import device_time
+
+    dev, d, out = idx.device, idx.dims, {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    n_all = len(all_vecs)
+    dead = np.r_[np.arange(0, n_all, 10), extra_keys].astype(np.int64)
+    live_keys = np.setdiff1d(np.arange(n_all), dead)
+    n_removed, out["remove_s"] = timed(dev, lambda: idx.remove(dead))
+    check(n_removed == len(dead) and len(idx) == len(live_keys),
+          f"removed {n_removed} of {len(dead)} keys")
+    flat = FlatIndex(d, MetricKind.L2SQ, capacity=len(live_keys), device=dev)
+    flat.add(all_vecs[live_keys], live_keys)
+    want = flat.search(q, k)[1]
+    del flat
+    log(f"# path 3 on {smi}: removed {n_removed} keys (every tenth of "
+        f"{n_all} and {len(extra_keys)} more) in {out['remove_s']:.3f} s; "
+        f"{len(live_keys)} live rows")
+
+    def search_checked(name, index=idx, truth=want, removed=dead, **kw):
+        (scores, got), sec = timed(dev, lambda: index.search(q, k, **kw))
+        rec = recall_of(got, truth, k)
+        back = int(np.isin(got, removed).sum())
+        log(f"# path 3 ({name}) on {smi}: {len(q)} queries in {sec:.3f} s, "
+            f"recall@{k} {rec:.4f}, removed keys returned {back}")
+        check(np.isfinite(scores).all() and (got >= 0).all(),
+              f"{name}: missing or non-finite results")
+        check(rec >= MIN_RECALL, f"{name}: recall {rec} < {MIN_RECALL}")
+        check(back == 0, f"{name}: {back} removed keys returned")
+        out[f"recall_{name}"] = rec
+        return scores, got
+
+    # 1. tombstones: traversal walks through them, results drop them
+    search_checked("removed")
+
+    # 2. isolate: no edge points into a tombstone any more
+    def edges_into_tombstones():
+        valid = idx.store._valid
+        return sum(int(((t >= 0) & ~valid[t.clamp_min(0).long()]).sum())
+                   for t in (idx.graph.neighbors0, idx.graph.upper_neighbors))
+
+    before = edges_into_tombstones()
+    _, out["isolate_s"] = timed(dev, idx.isolate)
+    after = edges_into_tombstones()
+    log(f"# path 3 isolate on {smi}: {out['isolate_s']:.3f} s; edges into "
+        f"tombstones "
+        f"{before} -> {after}")
+    check(before > 0 and after == 0, f"isolate left {after} edges")
+    search_checked("isolated")
+
+    # 3. compact and stats: live nodes renumbered, K1 on the new tables
+    _, out["compact_s"] = timed(dev, idx.compact)
+    stats, out["stats_s"] = timed(dev, idx.stats)
+    lv = stats["levels"]
+    log(f"# path 3 compact on {smi}: {out['compact_s']:.3f} s; stats "
+        f"{out['stats_s']:.3f} s: count {stats['count']}, capacity "
+        f"{stats['capacity']}, max_level {stats['max_level']}, nodes per "
+        f"level {[x['nodes'] for x in lv]}, level-0 edges {lv[0]['edges']}")
+    check(lv[0]["nodes"] == len(live_keys) == stats["count"],
+          f"level-0 nodes {lv[0]['nodes']} != live {len(live_keys)}")
+    scores_c, got_c = search_checked("compacted")
+    again = idx.search(q, k)
+    log(f"# path 3: the same search again equals it: "
+        f"{np.array_equal(again[1], got_c) and np.array_equal(again[0], scores_c)}")
+
+    # 4. save and load on the native container: the same keys and scores
+    lib = persist.get_lib()
+    check(lib is not None, "the native vss_store library did not load (the "
+          ".npz fallback would run)")
+    log(f"# path 3 persistence through {os.path.relpath(lib._name, here)}")
+    build_dir = os.path.join(here, "build")
+    os.makedirs(build_dir, exist_ok=True)
+
+    def same_as_saved(name, loaded):
+        (s2, k2), sec = timed(dev, lambda: loaded.search(q, k))
+        n_keys = int((k2 != got_c).sum())
+        n_scores = int((s2 != scores_c).sum())
+        log(f"# path 3 {name} on {smi}: first search {sec:.3f} s; keys "
+            f"differing "
+            f"from before the save {n_keys}, scores {n_scores}")
+        check(n_keys == 0 and n_scores == 0,
+              f"{name}: the loaded index searches differently")
+        return sec
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = os.path.join(tmp, "index.vss")
+        _, out["save_s"] = timed(dev, lambda: persist.save_index(idx, path))
+        with open(path, "rb") as f:
+            check(f.read(8) == NATIVE_MAGIC, "not a native container")
+        size_mb = os.path.getsize(path) / 2**20
+        lazy, out["open_lazy_s"] = timed(
+            dev, lambda: persist.load_index(path, device=dev))
+        check(lazy._pending_load is not None and lazy.graph is None,
+              "the lazy load read the device sections")
+        out["lazy_first_search_s"] = same_as_saved("lazy load", lazy)
+        del lazy
+        eager, out["load_eager_s"] = timed(
+            dev, lambda: persist.load_index(path, lazy=False, device=dev))
+        same_as_saved("eager load", eager)
+        del eager
+        with open(path, "rb") as f:
+            img = f.read()
+        buf, out["load_buffer_s"] = timed(
+            dev, lambda: persist.load_index_from_buffer(img, lazy=False,
+                                                        device=dev))
+        same_as_saved("load from a buffer", buf)
+        del buf, img
+    log(f"# path 3 persistence on {smi}: save {out['save_s']:.2f} s "
+        f"({size_mb:.0f} MiB), lazy open {out['open_lazy_s']:.3f} s + first "
+        f"search {out['lazy_first_search_s']:.2f} s, eager load "
+        f"{out['load_eager_s']:.2f} s, from a buffer "
+        f"{out['load_buffer_s']:.2f} s")
+
+    # 5. a bf16 store of the base rows, bulk built
+    base = all_vecs[:n_base]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    b16 = HNSWIndex(d, idx.config, capacity=len(base), device=dev,
+                    scalar_kind="bf16")
+    _, out["bf16_build_s"] = timed(dev, lambda: b16.add(
+        base, np.arange(len(base))))
+    b16.search(q[:64], k)  # builds the int8 layout from the bf16 rows
+    search_checked("bf16_store", index=b16, truth=want_base,
+                   removed=np.zeros(0, np.int64))
+    qd16 = b16.store.prepare_queries(q[:timed_b])
+    out["bf16_search_device_ms"] = (device_time(
+        lambda: b16.search_device(qd16, k), iters=5) * 1e3
+        if dev.type == "cuda" else float("nan"))
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda"
+            else float("nan"))
+    log(f"# path 3 bf16 store on {smi}: build {out['bf16_build_s']:.2f} s, "
+        f"search_device {out['bf16_search_device_ms']:.2f} ms at "
+        f"B={timed_b}, peak device memory {peak:.2f} GiB, store "
+        f"{b16.store._vectors.dtype}")
+    del b16, qd16
+
+    # 6. queries sent as bf16 and as int8
+    for transfer in ("bf16", "int8"):
+        idx.query_transfer_dtype = transfer
+        search_checked(f"transfer_{transfer}")
+    idx.query_transfer_dtype = "f32"
+
+    # 7. the flat layout's step-by-step beam with and without the
+    # augmented table, ef 64
+    idx.layout, idx.use_aug = "flat", True
+    search_checked("aug", ef=64)
+    idx.use_aug, idx._aug_cache = False, None
+    search_checked("flat_bf16", ef=64)
+    idx.layout = "auto"
+
+    # 8. cluster heads at level 1
+    (ckeys, cscores), out["cluster_s"] = timed(
+        dev, lambda: idx.cluster(q, level=1))
+    levels = idx.graph.levels.cpu().numpy()
+    check((ckeys >= 0).all(), "cluster: a missing key")
+    heads = np.array([idx.store._key_to_slot[int(c)] for c in ckeys])
+    exact = ((q - all_vecs[ckeys]) ** 2).sum(1)
+    log(f"# path 3 cluster on {smi}: {len(q)} queries in "
+        f"{out['cluster_s']:.3f} s, "
+        f"{len(np.unique(ckeys))} distinct heads, lowest head level "
+        f"{levels[heads].min()}")
+    check((levels[heads] >= 1).all(), "cluster: a head below level 1")
+    check(np.allclose(cscores, exact, rtol=1e-4, atol=1e-4),
+          "cluster: scores are not the exact l2sq distances")
+
+    # 9. join: a held-out index proposes to the big one (K1 searches)
+    held = make_rows(n_join)
+    hidx = HNSWIndex(d, idx.config, capacity=n_join, device=dev)
+    hkeys = np.arange(n_join, dtype=np.int64) + 2 * 10**9
+    hidx.add(held, hkeys)
+    matches, out["join_s"] = timed(dev, lambda: hidx.join(idx, k=16))
+    pref_s, pref_k = idx.search(held, 16)
+    n_bad = blocking_pairs(matches, hkeys, pref_s, pref_k)
+    log(f"# path 3 join on {smi}: {n_join} proposers, {len(matches)} "
+        f"matched in {out['join_s']:.2f} s; blocking pairs {n_bad}")
+    check(len(matches) > 0 and n_bad == 0, f"join: {n_bad} blocking pairs")
+    del hidx
+
+    # 10. the stashed flat scan equals the per-block one, id for id
+    st = idx.store
+    qd = st.prepare_queries(q[:n_stash_q])
+    args = (qd, st._vectors, k, MetricKind.L2SQ)
+    blk = 16384 if st.capacity % 16384 == 0 else st.capacity
+    plain = flat_topk(*args, vec_sq=st._vec_sq, valid=st._valid,
+                      block_n=blk)
+    stash = flat_topk_stashed(*args, st._vec_sq, st._valid, blk)
+    routed = flat_topk(*args, vec_sq=st._vec_sq, valid=st._valid,
+                       block_n=blk, stash_bytes=n_stash_q * st.capacity * 4)
+    same = all(torch.equal(a, b) for a, b in zip(plain + routed,
+                                                 stash + stash))
+    if dev.type == "cuda":
+        out["stash_ms"] = device_time(lambda: flat_topk_stashed(
+            *args, st._vec_sq, st._valid, blk), iters=3) * 1e3
+        out["blockwise_ms"] = device_time(lambda: flat_topk(
+            *args, vec_sq=st._vec_sq, valid=st._valid, block_n=blk),
+            iters=3) * 1e3
+    log(f"# path 3 stashed flat scan on {smi}, {n_stash_q} queries over "
+        f"{st.capacity} rows: equal to the per-block scan id for id and "
+        f"score for score: {same}; device ms stashed "
+        f"{out.get('stash_ms', float('nan')):.2f}, per block "
+        f"{out.get('blockwise_ms', float('nan')):.2f}")
+    check(same, "the stashed flat scan differs from the per-block scan")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1234)
@@ -744,8 +1027,27 @@ def main(argv=None) -> int:
     bb = idx.build_batch
     extra = (centers[rng.integers(0, len(centers), bb)]
              + 0.25 * rng.normal(size=(bb, d)).astype(np.float32))
+    extra_keys = np.arange(bb) + 10**9
     profile_on_card(f"one insert batch of {bb} rows",
-                    lambda: idx.add(extra, np.arange(bb) + 10**9), smi)
+                    lambda: idx.add(extra, extra_keys), smi)
+
+    # ---- 8. main path 3: the rest of the index surface, persistence ------
+    def make_rows(m):
+        return (centers[rng.integers(0, len(centers), m)]
+                + 0.25 * rng.normal(size=(m, d)).astype(np.float32))
+
+    zero_counts()
+    t0 = time.perf_counter()
+    p3 = path3(idx, np.concatenate([vecs, new]), extra_keys, q, n, want,
+               make_rows, smi)
+    k1_launches_3 = fb.fused_beam_search.launches
+    log(f"# path 3 on {smi}: {time.perf_counter() - t0:.1f} s; K1 launches "
+        f"{k1_launches_3}, plain version calls {fb.beam_search_plain.calls}"
+        f"; K2 launches {fg.gather_scores_kernel.launches}; measured "
+        + json.dumps({name: round(v, 4) for name, v in p3.items()}))
+    check(k1_launches_3 > 0, "path 3 never launched K1")
+    check(fb.beam_search_plain.calls == 0,
+          "path 3 ran K1's plain version")
     log(f"# total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -753,7 +1055,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "duckdb_vss_tpu_torch/csrc/fused_beam.cu",
         "replaces": "duckdb_vss_tpu/ops/pallas_beam.py:133",
-        "launches": k1_launches + k1_launches_2,
+        "launches": k1_launches + k1_launches_2 + k1_launches_3,
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,

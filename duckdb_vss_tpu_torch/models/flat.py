@@ -1,13 +1,24 @@
 """Flat (brute-force) vector index (port of duckdb_vss_tpu/models/flat.py).
 
-One dense [capacity, D_pad] f32 block on the device plus per-slot
-squared norms, a validity mask (deletes are tombstones) and a host-side
-slot -> key table with a LIFO free-list of tombstoned slots. Capacity
-grows by the JAX package's buckets (utils/padding.round_up_capacity).
+One dense [capacity, D_pad] block on the device plus per-slot squared
+norms, a validity mask (deletes are tombstones) and a host-side slot ->
+key table with a LIFO free-list of tombstoned slots. Capacity grows by
+the JAX package's buckets (utils/padding.round_up_capacity).
 
 The HNSW index uses it as its vector store, and the chip run uses its
-exact f32 scan as the ground truth. ``compact`` and the bf16 store
-(``scalar_kind="bf16"``) come with a later slice.
+exact f32 scan as the ground truth.
+
+scalar_kind selects the storage precision: "f32" (default) or "bf16"
+(half the device memory and half the host-to-device bytes). Rows are
+rounded to nearest even, as ml_dtypes (and so the JAX package) rounds
+them. Squared norms are f32 always, taken from the rounded rows so the
+product-expansion identity stays consistent; distances from a bf16
+store carry ~2^-8 relative rounding.
+
+Every squared norm is summed on the host by numpy, from the rows as
+stored: for the bulk load (the JAX package sums there too), for scatter
+inserts, and when persist.load_index rebuilds them. So a saved and
+reloaded store holds the same norms, bit for bit, as the one saved.
 """
 
 from __future__ import annotations
@@ -23,6 +34,15 @@ from duckdb_vss_tpu_torch.utils.padding import (INF_SCORE, pad_2d_np, pad_dim,
 
 MIN_CAPACITY = 1024
 DEFAULT_BLOCK_N = 16384
+SCALAR_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+TRANSFER_DTYPES = ("f32", "bf16", "int8")
+
+
+def row_sq_norms(stored: np.ndarray) -> np.ndarray:
+    """Squared norms of stored rows, given as f32 [N, d_pad]: the one
+    place the store's norms are summed (by numpy, on the host)."""
+    return (stored * stored).sum(-1)
+
 
 
 class FlatIndex:
@@ -30,18 +50,29 @@ class FlatIndex:
 
     def __init__(self, dims: int, metric: MetricKind = MetricKind.L2SQ,
                  capacity: int = MIN_CAPACITY,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 scalar_kind: str = "f32", defer_alloc: bool = False):
+        if scalar_kind not in SCALAR_DTYPES:
+            raise ValueError(
+                f"scalar_kind must be f32 or bf16, got {scalar_kind!r}")
         self.device = resolve_device(device)
         self.dims = int(dims)
         self.d_pad = pad_dim(self.dims)
         self.metric = metric
+        self.scalar_kind = scalar_kind
+        self._dtype = SCALAR_DTYPES[scalar_kind]
         self.capacity = round_up_capacity(capacity)
-        self._vectors = torch.zeros((self.capacity, self.d_pad),
-                                    dtype=torch.float32, device=self.device)
-        self._vec_sq = torch.zeros((self.capacity,), dtype=torch.float32,
-                                   device=self.device)
-        self._valid = torch.zeros((self.capacity,), dtype=torch.bool,
-                                  device=self.device)
+        if defer_alloc:
+            # persist.load_index's lazy path fills the device arrays at
+            # the first data-touching call; until then none exist
+            self._vectors = self._vec_sq = self._valid = None
+        else:
+            self._vectors = torch.zeros((self.capacity, self.d_pad),
+                                        dtype=self._dtype, device=self.device)
+            self._vec_sq = torch.zeros((self.capacity,), dtype=torch.float32,
+                                       device=self.device)
+            self._valid = torch.zeros((self.capacity,), dtype=torch.bool,
+                                      device=self.device)
         # slot -> key map lives host-side (64-bit row ids; outside the hot
         # compute path: the device returns slots, the host maps them)
         self._keys = np.full((self.capacity,), -1, np.int64)
@@ -60,7 +91,7 @@ class FlatIndex:
         pad = new_cap - self.capacity
         dev = self.device
         self._vectors = torch.cat([self._vectors, torch.zeros(
-            (pad, self.d_pad), dtype=torch.float32, device=dev)])
+            (pad, self.d_pad), dtype=self._dtype, device=dev)])
         self._vec_sq = torch.cat([self._vec_sq, torch.zeros(
             (pad,), dtype=torch.float32, device=dev)])
         self._valid = torch.cat([self._valid, torch.zeros(
@@ -95,20 +126,20 @@ class FlatIndex:
                 raise ValueError(f"duplicate key {k_}")
             self._key_to_slot[k_] = s_
 
-        vec_np = pad_2d_np(vectors, n, self.d_pad)
-        vec = torch.from_numpy(vec_np).to(self.device)
+        # the rows as stored (bf16 rounds to nearest even) and their norms
+        rows = torch.from_numpy(pad_2d_np(vectors, n, self.d_pad)).to(
+            self._dtype)
+        sq = torch.from_numpy(row_sq_norms(rows.float().numpy()))
+        rows, sq = rows.to(self.device), sq.to(self.device)
         if self.size == 0 and n_reuse == 0 and slots[0] == 0:
-            # bulk load into an empty index: contiguous rows, no scatter;
-            # norms summed on the host as the JAX package sums them, so
-            # both stores hold the same bits
-            self._vectors[:n] = vec
-            self._vec_sq[:n] = torch.from_numpy(
-                (vec_np * vec_np).sum(-1)).to(self.device)
+            # bulk load into an empty index: contiguous rows, no scatter
+            self._vectors[:n] = rows
+            self._vec_sq[:n] = sq
             self._valid[:n] = True
         else:
             idx = torch.from_numpy(slots).to(self.device)
-            self._vectors[idx] = vec
-            self._vec_sq[idx] = (vec * vec).sum(-1)
+            self._vectors[idx] = rows
+            self._vec_sq[idx] = sq
             self._valid[idx] = True
         self._keys[slots] = keys
         self.size += n
@@ -130,18 +161,67 @@ class FlatIndex:
             self.size -= len(slots)
         return len(slots)
 
+    def compact(self) -> None:
+        """Pack the live slots to the front, in slot order, and shrink the
+        capacity to the bucket of the live count."""
+        live = np.nonzero(self._valid.cpu().numpy())[0]
+        n_live = len(live)
+        new_cap = round_up_capacity(max(n_live, 1))
+        perm = torch.from_numpy(live).to(self.device)
+        vecs = torch.zeros((new_cap, self.d_pad), dtype=self._dtype,
+                           device=self.device)
+        vecs[:n_live] = self._vectors[perm]
+        sq = torch.zeros((new_cap,), dtype=torch.float32, device=self.device)
+        sq[:n_live] = self._vec_sq[perm]
+        self._vectors, self._vec_sq = vecs, sq
+        self._valid = torch.zeros((new_cap,), dtype=torch.bool,
+                                  device=self.device)
+        self._valid[:n_live] = True
+        keys_np = self._keys[live]
+        self._keys = np.full((new_cap,), -1, np.int64)
+        self._keys[:n_live] = keys_np
+        self._key_to_slot = {int(k): i for i, k in enumerate(keys_np.tolist())}
+        self._free_slots = []
+        self._next_slot = n_live
+        self.capacity = new_cap
+
     # -- search -----------------------------------------------------------
 
-    def prepare_queries(self, queries: np.ndarray) -> torch.Tensor:
-        """Pad a query batch to [B, d_pad] f32 and move it to the device."""
+    def prepare_queries(self, queries: np.ndarray,
+                        transfer_dtype: str = "f32") -> torch.Tensor:
+        """Pad a query batch to [B, d_pad] and move it to the device as
+        f32.
+
+        transfer_dtype="bf16" sends the rows as bf16 (rounded to nearest
+        even) and widens them on the device: half the host-to-device
+        bytes. "int8" sends per-query symmetric int8 rows and one f32
+        scale each (absmax / 127, round half to even, as the JAX package
+        computes them on the host) and dequantizes on the device: about a
+        quarter of the bytes. For ANN search only: the rounding moves
+        distances by ~2^-9 relative for bf16, ~2^-7 for int8, and costs
+        recall on clustered data (PERF.md); exact paths keep f32."""
+        if transfer_dtype not in TRANSFER_DTYPES:
+            raise ValueError(f"transfer_dtype must be one of "
+                             f"{TRANSFER_DTYPES}, got {transfer_dtype!r}")
         queries = np.asarray(queries, np.float32)
         if queries.ndim == 1:
             queries = queries[None, :]
         b, d = queries.shape
         if d != self.dims:
             raise ValueError(f"query width {d} != index width {self.dims}")
-        padded = pad_2d_np(queries, b, self.d_pad)
-        return torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
+        padded = np.ascontiguousarray(pad_2d_np(queries, b, self.d_pad))
+        if transfer_dtype == "bf16":
+            return torch.from_numpy(padded).to(torch.bfloat16).to(
+                self.device).float()
+        if transfer_dtype == "int8":
+            absmax = np.abs(padded).max(axis=1)
+            scale = np.where(absmax > 0, absmax / 127.0, 1.0
+                             ).astype(np.float32)
+            q8 = np.clip(np.round(padded / scale[:, None]), -127, 127
+                         ).astype(np.int8)
+            scale = torch.from_numpy(scale).to(self.device)
+            return torch.from_numpy(q8).to(self.device).float() * scale[:, None]
+        return torch.from_numpy(padded).to(self.device)
 
     def search_device(self, queries_padded: torch.Tensor, k: int,
                       block_n: int = DEFAULT_BLOCK_N
@@ -165,6 +245,13 @@ class FlatIndex:
         keys = np.where(slots_np >= 0, self._keys[np.maximum(slots_np, 0)],
                         np.int64(-1))
         return scores_np, keys
+
+    # -- introspection ----------------------------------------------------
+
+    def get_vector(self, key: int) -> np.ndarray:
+        """The stored row of ``key`` (f32, unpadded; raises KeyError)."""
+        slot = self._key_to_slot[int(key)]
+        return self._vectors[slot, :self.dims].float().cpu().numpy()
 
     def __len__(self) -> int:
         return self.size

@@ -21,10 +21,13 @@ tombstones, reranks exactly in f32 and optionally expands one hop.
 ``beam_search`` ends early the way the JAX package's while-loop does,
 but looks at the ``done`` flag only every ``sync_every`` steps (one host
 read each): a step taken after ``done`` selects nothing and changes
-nothing, so the beam and the distance count are the same.
+nothing, so the beam and the distance count are the same. Its
+``loop="scan"`` and ``"unroll"`` forms (XLA tactics in the JAX package)
+run the fixed trip count with no host read, to the same results.
 
-Not here yet: the augmented traversal table and the "scan"/"unroll"
-loop forms (same results as the while form).
+The augmented traversal table (make_aug_table, off by default) folds a
+row's metric terms into the row itself, so the step-by-step beam scores
+a candidate with one row gather and no norm gather.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search, pack_meta
 from duckdb_vss_tpu_torch.ops.fused_gather import gather_scores_kernel
 from duckdb_vss_tpu_torch.ops.topk import flat_topk, smallest_k
 from duckdb_vss_tpu_torch.utils.config import MetricKind
-from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
+from duckdb_vss_tpu_torch.utils.padding import INF_SCORE, pad_dim
 
 # Static cap on levels above base. P(level >= 8) = M^-8 (~2e-10 at M=16).
 L_MAX = 8
@@ -51,6 +54,8 @@ UPPER_DIV = 4
 # expansions run the step-by-step beam
 FUSED_MAX_EF = 128
 FUSED_MAX_EXPAND = 8
+
+LOOPS = ("while", "scan", "unroll")
 
 _EPS = 1e-30
 
@@ -125,15 +130,22 @@ def gather_scores(
     queries: torch.Tensor,  # [B, D]
     q_sq: torch.Tensor,  # [B]
     metric: MetricKind,
+    aug: bool = False,
 ) -> torch.Tensor:
     """Index-metric scores of gathered candidates: [B, C] f32.
 
     An f32 table scores in true f32 (the exact rerank); a bf16 table
-    scores bf16 operands with f32 sums."""
+    scores bf16 operands with f32 sums.
+
+    aug=True: ``vectors`` is an augmented traversal table whose rows
+    fold the member-side metric terms into the dot (make_aug_table) and
+    ``q_sq`` carries the query-side bias: score = dot + bias."""
     safe = ids.clamp_min(0).long()
     vecs = vectors[safe]  # [B, C, D]
     q = queries.to(vectors.dtype)
     dot = torch.bmm(vecs.float(), q.float()[:, :, None])[:, :, 0]
+    if aug:
+        return dot + q_sq[:, None]
     if metric == MetricKind.IP:
         return 1.0 - dot
     return metric_epilogue(dot, vec_sq[safe], q_sq, metric)
@@ -150,6 +162,75 @@ def metric_epilogue(dot, v_sq, q_sq, metric: MetricKind) -> torch.Tensor:
         score = 1.0 - dot / torch.clamp_min(denom, _EPS)
         score = torch.where((q_sq[:, None] <= 0.0) | (v_sq <= 0.0), 1.0, score)
         return torch.where((q_sq[:, None] <= 0.0) & (v_sq <= 0.0), 0.0, score)
+    raise ValueError(f"unknown metric {metric}")
+
+
+def aug_width(d_pad: int, metric: MetricKind) -> int:
+    """Row width of the augmented traversal table (a multiple of 128)."""
+    if metric == MetricKind.L2SQ:
+        return pad_dim(d_pad + 2)  # two lanes for the hi/lo split of |v|^2
+    return d_pad
+
+
+def make_aug_table(
+    vectors: torch.Tensor,  # [cap, d_pad] store (zero-padded past dims)
+    vec_sq: torch.Tensor,  # [cap] f32
+    metric: MetricKind,
+) -> torch.Tensor:
+    """Augmented traversal table: one bf16 row per member that folds ALL
+    member-side metric terms into a single dot product, so the beam
+    gathers one row per candidate and no norm.
+
+      l2sq:   row = [-2v | hi(|v|^2), lo(|v|^2)] ; q_aug = [q | 1, 1]
+              dot = |v|^2 - 2 v.q ; + bias (= |q|^2) = l2sq. |v|^2 is
+              split into two bf16 lanes (hi and the exact residual) to
+              keep ~16 mantissa bits: a single bf16 norm costs recall.
+      ip:     row = [-v];        q_aug = [q];      bias 1  -> 1 - v.q
+      cosine: row = [-v/|v|];    q_aug = [q/|q|];  bias 1  -> 1 - cos
+              (zero-norm rows stay 0: the exact rerank restores the
+              zero-norm cases)
+
+    The proxy is monotone in the true metric per query; emitted
+    distances always come from the exact rerank. Bit for bit the JAX
+    package's table."""
+    cap, d_pad = vectors.shape
+    dtype = torch.bfloat16
+    if metric == MetricKind.L2SQ:
+        out = torch.zeros((cap, aug_width(d_pad, metric)), dtype=dtype,
+                          device=vectors.device)
+        out[:, :d_pad] = (-2.0 * vectors).to(dtype)
+        hi = vec_sq.to(dtype)
+        out[:, d_pad] = hi
+        out[:, d_pad + 1] = (vec_sq - hi.float()).to(dtype)
+        return out
+    if metric == MetricKind.IP:
+        return (-vectors).to(dtype)
+    if metric == MetricKind.COSINE:
+        inv = torch.rsqrt(torch.clamp_min(vec_sq, _EPS))
+        return (-vectors * inv[:, None]).to(dtype)
+    raise ValueError(f"unknown metric {metric}")
+
+
+def make_aug_queries(
+    queries: torch.Tensor,  # [B, d_pad] f32 (zero-padded past dims)
+    q_sq: torch.Tensor,  # [B]
+    metric: MetricKind,
+    d_aug: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Query side of make_aug_table: (q_aug [B, d_aug] f32, bias [B]
+    f32) with proxy score = dot(row_aug, q_aug) + bias."""
+    b, d_pad = queries.shape
+    if metric == MetricKind.L2SQ:
+        q_aug = torch.zeros((b, d_aug), dtype=torch.float32,
+                            device=queries.device)
+        q_aug[:, :d_pad] = queries
+        q_aug[:, d_pad:d_pad + 2] = 1.0
+        return q_aug, q_sq
+    if metric == MetricKind.IP:
+        return queries, torch.ones_like(q_sq)
+    if metric == MetricKind.COSINE:
+        inv = torch.rsqrt(torch.clamp_min(q_sq, _EPS))
+        return queries * inv[:, None], torch.ones_like(q_sq)
     raise ValueError(f"unknown metric {metric}")
 
 
@@ -323,6 +404,8 @@ def beam_search(
     max_steps: int | None = None,
     active: torch.Tensor | None = None,  # [B] bool; inactive queries idle
     use_pallas: bool = False,  # score through kernel K2 (f32 table only)
+    loop: str = "while",  # "while" (early exit) | "scan" | "unroll"
+    aug: bool = False,  # vectors/queries/q_sq are augmented (make_aug_table)
     nbr_vecs: torch.Tensor | None = None,  # [cap, M0, D] i8 neighborhood
     nbr_scale: torch.Tensor | None = None,  # [cap, M0] f32 dequant scales
     nbr_sq: torch.Tensor | None = None,  # [cap, M0]
@@ -334,21 +417,30 @@ def beam_search(
 
     Per-step scoring, in the JAX package's order of choice: the int8
     neighborhood tiles when given (base layer only), kernel K2 when
-    ``use_pallas``, else gather_scores on ``vectors`` (f32 or bf16).
+    ``use_pallas`` (not with an augmented table), else gather_scores on
+    ``vectors`` (f32 or bf16; with ``aug``, an augmented table, its
+    queries and their bias).
 
-    The loop ends at ``max_steps`` or when every beam entry is expanded
-    or empty. That flag is read on the host every ``sync_every`` steps;
-    steps taken past it change nothing (see the module docstring).
-    ``beam_search.steps`` counts the steps taken by all calls."""
+    loop="while" ends at ``max_steps`` or when every beam entry is
+    expanded or empty. That flag is read on the host every
+    ``sync_every`` steps; steps taken past it change nothing (see the
+    module docstring). "scan" and "unroll" run all ``max_steps`` steps
+    and never read it. ``beam_search.steps`` counts the steps taken by
+    all calls."""
+    if loop not in LOOPS:
+        raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
     b, p = entry_nodes.shape
     dev = queries.device
     base = level == 0
     tiles = nbr_vecs is not None and base
     if max_steps is None:
         max_steps = 3 * ef // expand + 8
+    if loop != "while":
+        sync_every = 0
     if active is None:
         active = torch.ones((b,), dtype=torch.bool, device=dev)
-    if use_pallas and not tiles and vectors.dtype != torch.float32:
+    if use_pallas and not tiles and not aug \
+            and vectors.dtype != torch.float32:
         raise ValueError(
             "use_pallas scores through the gather+score kernel, which takes "
             f"an f32 table; the traversal table is {vectors.dtype}. Build "
@@ -356,7 +448,8 @@ def beam_search(
 
     # init beam from entry points
     seed_valid = (entry_nodes >= 0) & active[:, None]
-    seed_s = gather_scores(vectors, vec_sq, entry_nodes, queries, q_sq, metric)
+    seed_s = gather_scores(vectors, vec_sq, entry_nodes, queries, q_sq, metric,
+                           aug=aug)
     seed_s = torch.where(seed_valid, seed_s, INF_SCORE)
     # dedup seeds (the same entry may be given twice); a repeat keeps its
     # id with an INF score
@@ -407,10 +500,11 @@ def beam_search(
             s = _int8_tile_scores(nbr_vecs, nbr_scale, nbr_sq,
                                   sel_ids.clamp_min(0).long(), q_i8, q_scale,
                                   q_sq, metric)
-        elif use_pallas:
+        elif use_pallas and not aug:
             s = gather_scores_kernel(vectors, kept_ids, queries, q_sq, metric)
         else:
-            s = gather_scores(vectors, vec_sq, nbrs, queries, q_sq, metric)
+            s = gather_scores(vectors, vec_sq, nbrs, queries, q_sq, metric,
+                              aug=aug)
         s = torch.where(keep, s, INF_SCORE)
         n_dist = n_dist + keep.sum()
 
@@ -534,11 +628,13 @@ def search_graph(
     n_seeds: int = 4,
     descent_steps: int | None = None,
     traversal_vectors: torch.Tensor | None = None,
+    loop: str = "while",  # the step-by-step beam's loop form
     descent: str = "beam",  # "beam" | "mxu"
     upper_vecs: torch.Tensor | None = None,  # required for descent="mxu"
     upper_vec_sq: torch.Tensor | None = None,
     upper_nodes: torch.Tensor | None = None,  # slot -> node map matching
     # upper_vecs' row count; defaults to the full state.upper_node
+    aug_table: torch.Tensor | None = None,  # augmented traversal table
     nbr_vecs: torch.Tensor | None = None,  # neighborhood layout (make_
     nbr_scale: torch.Tensor | None = None,  # neighborhood_tables: i8 tiles,
     nbr_sq: torch.Tensor | None = None,  # dequant scales, squared norms)
@@ -552,7 +648,12 @@ def search_graph(
 
     traversal_vectors, if given, is a reduced-precision (bf16) copy of
     ``vectors`` used for descent + beam scoring only; the final rerank
-    always reads the f32 store so emitted distances stay exact.
+    always reads the store, so emitted distances are exact f32 sums of
+    the stored rows.
+
+    aug_table, if given, supersedes traversal_vectors for the base beam
+    when there is no neighborhood layout: an augmented bf16 table
+    (make_aug_table), one gather per candidate instead of two.
 
     descent="mxu" routes through one exact product over all upper-level
     nodes (mxu_descent) instead of the level-1 beam walk; upper_vecs /
@@ -594,10 +695,18 @@ def search_graph(
         n_dist = n_dist0 + n_dist1 + (seeds >= 0).sum()
         return _finish_search(vectors, vec_sq, valid_mask, queries, q_sq,
                               metric, k, scores, ids, n_dist, **finish)
+    aug = aug_table is not None and nbr_vecs is None
+    if aug:
+        beam_q, beam_bias = make_aug_queries(queries, q_sq, metric,
+                                             aug_table.shape[1])
+        beam_tab = aug_table
+    else:
+        beam_tab, beam_q, beam_bias = trav, queries, q_sq
     scores, ids, n_dist1 = beam_search(
-        state, trav, vec_sq, queries, q_sq, seeds, ef_eff, metric, level=0,
-        expand=expand, max_steps=max_steps, use_pallas=use_pallas,
-        nbr_vecs=nbr_vecs, nbr_scale=nbr_scale, nbr_sq=nbr_sq)
+        state, beam_tab, vec_sq, beam_q, beam_bias, seeds, ef_eff, metric,
+        level=0, expand=expand, max_steps=max_steps, use_pallas=use_pallas,
+        loop=loop, aug=aug, nbr_vecs=nbr_vecs, nbr_scale=nbr_scale,
+        nbr_sq=nbr_sq)
     return _finish_search(vectors, vec_sq, valid_mask, queries, q_sq, metric,
                           k, scores, ids, n_dist0 + n_dist1, **finish)
 

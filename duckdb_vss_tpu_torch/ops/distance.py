@@ -9,9 +9,17 @@ Index metric semantics follow usearch (lower score = closer):
 All three are one ``Q @ V^T`` product plus an elementwise epilogue.
 An f32 table is scored in true f32 (the package turns TF32 off), the
 counterpart of the JAX package's Precision.HIGHEST. A bf16 table (the
-bulk build's kNN sweeps, the upper-level descent table) is scored the
-way the JAX package scores it: queries rounded to bf16, products and
-sums in f32. The SQL scalar functions wait for the SQL slice.
+bulk build's kNN sweeps, the upper-level descent table, a bf16 store)
+is scored the way the JAX package scores it: queries rounded to bf16,
+products and sums in f32.
+
+SQL scalar-function semantics follow DuckDB's array functions, which
+the extension matches by name:
+- array_distance                = sqrt(l2sq)   (Euclidean)
+- array_cosine_distance         = 1 - cosine_similarity
+- array_negative_inner_product  = -<a,b>
+Their orderings equal the index metrics', so an index scan keeps the
+exact row order of the brute-force projection.
 """
 
 from __future__ import annotations
@@ -69,4 +77,93 @@ def score_matrix(
         # usearch zero-norm handling: both zero -> 0, exactly one zero -> 1
         score = torch.where(q_zero | v_zero, 1.0, score)
         return torch.where(q_zero & v_zero, 0.0, score)
+    raise ValueError(f"unknown metric {metric}")
+
+
+def pair_scores(a: torch.Tensor, b: torch.Tensor,
+                metric: MetricKind) -> torch.Tensor:
+    """Row-aligned index-metric scores: [B, D] x [B, D] -> [B]."""
+    a, b = a.float(), b.float()
+    dot = (a * b).sum(-1)
+    if metric == MetricKind.IP:
+        return 1.0 - dot
+    if metric == MetricKind.L2SQ:
+        diff = a - b
+        return (diff * diff).sum(-1)
+    if metric == MetricKind.COSINE:
+        a2, b2 = (a * a).sum(-1), (b * b).sum(-1)
+        a_zero, b_zero = a2 <= 0.0, b2 <= 0.0
+        score = 1.0 - dot / torch.clamp_min(torch.sqrt(a2 * b2), _EPS)
+        score = torch.where(a_zero | b_zero, 1.0, score)
+        return torch.where(a_zero & b_zero, 0.0, score)
+    raise ValueError(f"unknown metric {metric}")
+
+
+# ---------------------------------------------------------------------------
+# DuckDB-compatible scalar functions (elementwise over row-aligned pairs):
+# what projections in the SQL layer evaluate; the index metrics above are
+# their order-preserving counterparts. Arguments are tensors or anything
+# torch.as_tensor takes.
+# ---------------------------------------------------------------------------
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x).float()
+
+
+def array_distance(a, b) -> torch.Tensor:
+    """Euclidean distance (with sqrt), row-aligned [.., D] -> [..]."""
+    diff = _f32(a) - _f32(b)
+    return torch.sqrt((diff * diff).sum(-1))
+
+
+def array_inner_product(a, b) -> torch.Tensor:
+    return (_f32(a) * _f32(b)).sum(-1)
+
+
+def array_negative_inner_product(a, b) -> torch.Tensor:
+    return -array_inner_product(a, b)
+
+
+def array_cosine_similarity(a, b) -> torch.Tensor:
+    a, b = _f32(a), _f32(b)
+    dot = (a * b).sum(-1)
+    denom = torch.sqrt((a * a).sum(-1) * (b * b).sum(-1))
+    return dot / torch.clamp_min(denom, _EPS)
+
+
+def array_cosine_distance(a, b) -> torch.Tensor:
+    return 1.0 - array_cosine_similarity(a, b)
+
+
+def array_value(*args) -> torch.Tensor:
+    """DuckDB array_value(a, b, ...): stack scalars/columns into vectors."""
+    arrs = [_f32(a) for a in args]
+    if any(a.ndim for a in arrs):
+        n = next(a.shape[0] for a in arrs if a.ndim)
+        arrs = [torch.broadcast_to(a, (n,)) for a in arrs]
+    return torch.stack(arrs, dim=-1)
+
+
+# Function name -> implementation, for the expression layer.
+SCALAR_FUNCTIONS = {
+    "array_distance": array_distance,
+    "array_inner_product": array_inner_product,
+    "array_negative_inner_product": array_negative_inner_product,
+    "array_cosine_similarity": array_cosine_similarity,
+    "array_cosine_distance": array_cosine_distance,
+    "array_value": array_value,
+}
+
+
+def metric_score_to_function_value(score: torch.Tensor,
+                                   metric: MetricKind) -> torch.Tensor:
+    """An index-metric score as the value of the SQL function that orders
+    by it (the projected distance column, without re-gathering rows)."""
+    if metric == MetricKind.L2SQ:
+        return torch.sqrt(torch.clamp_min(score, 0.0))  # array_distance
+    if metric == MetricKind.COSINE:
+        return score  # array_cosine_distance == the cosine metric score
+    if metric == MetricKind.IP:
+        return score - 1.0  # 1 - dot  ->  -dot
     raise ValueError(f"unknown metric {metric}")

@@ -26,7 +26,13 @@ def smallest_k(s: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact ascending top-k (smallest scores) of ``s`` [B, N], k <= N.
 
     Returns (scores [B, k], positions [B, k] int64). Ties resolve to the
-    lowest position, both inside the k and at the k-th value."""
+    lowest position, both inside the k and at the k-th value.
+
+    It stands in for the JAX package's ``exact_topk_small`` (a two-level
+    tournament that beats lax.top_k on the TPU) and for lax.top_k: same
+    scores, same positions, for any N (no multiple of 128 needed), and
+    distinct positions also where a row has fewer than k finite
+    scores."""
     b, n = s.shape
     if k >= n:
         out, pos = torch.sort(s, dim=1, stable=True)
@@ -91,6 +97,63 @@ def flat_topk_dense(
     return _pad_k(scores, pos.to(torch.int32), k)
 
 
+def flat_topk_stashed(
+    queries: torch.Tensor,
+    vectors: torch.Tensor,
+    k: int,
+    metric: MetricKind,
+    vec_sq: torch.Tensor,
+    valid: torch.Tensor,
+    block_n: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact streaming top-k with one global extraction phase.
+
+    Keeps the whole [B, N] score matrix (block by block, as the scan
+    makes it) with each 128-wide bin's minimum and its position, then
+    runs k extraction passes: the argmin over the [B, N/128] bin minima,
+    the winner's bin read again from the stash with every place taken
+    from it masked, its new minimum. The same scores and ids, in the same
+    tie order (lowest bin, then lowest lane), as ``flat_topk``'s
+    per-block selection. Where a row has fewer than k finite scores, the
+    places past them carry INF_SCORE with ids that may repeat (as in the
+    JAX package); callers mask by ``score >= INF_SCORE``.
+
+    Off by default: ``flat_topk`` takes this path only within its
+    ``stash_bytes`` budget (0)."""
+    b = queries.shape[0]
+    n = vectors.shape[0]
+    nb, bpb = n // block_n, block_n // 128
+    q_f32 = queries.float()
+    q_sq = sq_norms(q_f32)
+    stash = torch.empty((nb, b, block_n), dtype=torch.float32,
+                        device=queries.device)
+    for i in range(nb):
+        blk = slice(i * block_n, (i + 1) * block_n)
+        stash[i] = torch.where(valid[None, blk], score_matrix(
+            q_f32, vectors[blk], metric, vec_sq=vec_sq[blk], query_sq=q_sq),
+            INF_SCORE)
+    bins = stash.view(nb, b, bpb, 128)
+    bin_min, bin_pos = bins.min(dim=3)  # [nb, B, bpb]: the first minimum
+    bin_min = bin_min.permute(1, 0, 2).reshape(b, nb * bpb)
+    bin_pos = bin_pos.permute(1, 0, 2).reshape(b, nb * bpb)
+    rows = torch.arange(b, device=queries.device)
+    lane = torch.arange(128, device=queries.device)
+    out_s = torch.full((b, k), INF_SCORE, dtype=torch.float32,
+                       device=queries.device)
+    out_i = torch.full((b, k), -1, dtype=torch.int64, device=queries.device)
+    for j in range(k):
+        sc, g = bin_min.min(dim=1)  # the first (lowest) bin on ties
+        out_s[:, j] = sc
+        out_i[:, j] = g * 128 + bin_pos[rows, g]
+        bin_row = bins[g // bpb, rows, g % bpb]  # [B, 128]
+        taken = torch.where(out_i[:, :j + 1] // 128 == g[:, None],
+                            out_i[:, :j + 1] % 128, -1)
+        bin_row = torch.where((lane[None, :, None] == taken[:, None, :])
+                              .any(dim=2), INF_SCORE, bin_row)
+        bin_min[rows, g], bin_pos[rows, g] = bin_row.min(dim=1)
+    return out_s, out_i.to(torch.int32)
+
+
 def flat_topk(
     queries: torch.Tensor,
     vectors: torch.Tensor,
@@ -99,22 +162,32 @@ def flat_topk(
     vec_sq: torch.Tensor | None = None,
     valid: torch.Tensor | None = None,
     block_n: int = 16384,
+    stash_bytes: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Streaming top-k over [block_n, D] blocks.
 
     ``vectors`` must be [N, D] with N divisible by ``block_n`` (the store
     guarantees this); returns ascending (scores [B, k], ids [B, k] int32).
     The product runs in the table's dtype (see dot_scores); norms are
-    f32 always."""
+    f32 always. With k <= 32, ``block_n`` a multiple of 128 and the
+    [B, N] f32 scores within ``stash_bytes`` (default 0: never, as the
+    JAX package's DVT_FLAT_STASH_GB), the selection runs through
+    ``flat_topk_stashed`` instead, with the same results."""
     n = vectors.shape[0]
     if n <= block_n:
         return flat_topk_dense(queries, vectors, k, metric, vec_sq, valid)
     if n % block_n:
         raise ValueError(f"row count {n} is not a multiple of {block_n}")
-    q_f32 = queries.float()
-    q_sq = sq_norms(q_f32)
     if vec_sq is None:
         vec_sq = sq_norms(vectors)
+    if (k <= 32 and block_n % 128 == 0
+            and queries.shape[0] * n * 4 <= stash_bytes):
+        if valid is None:
+            valid = torch.ones((n,), dtype=torch.bool, device=vectors.device)
+        return flat_topk_stashed(queries, vectors, k, metric, vec_sq, valid,
+                                 block_n)
+    q_f32 = queries.float()
+    q_sq = sq_norms(q_f32)
     kc = min(k, block_n)
     all_s, all_i = [], []
     for off in range(0, n, block_n):

@@ -1,10 +1,15 @@
 """Carry an index's state between the JAX package and the port.
 
 Both packages keep the same arrays: the store (``_vectors`` [cap, d_pad]
-f32, ``_vec_sq`` [cap], ``_valid`` [cap] bool, ``_keys`` [cap] int64)
-and the GraphState fields. ``index_from_arrays`` builds a port
-HNSWIndex from them, passed as numpy, so the port can run on the exact
-graph the JAX package built; ``index_to_arrays`` does the reverse.
+f32 or bf16, ``_vec_sq`` [cap], ``_valid`` [cap] bool, ``_keys`` [cap]
+int64, the free-list and the next fresh slot) and the GraphState
+fields. ``index_from_arrays`` builds a port HNSWIndex from them, passed
+as numpy, so the port can run on the exact graph the JAX package built;
+``index_to_arrays`` does the reverse.
+
+A bf16 store crosses as its bit patterns: numpy has no bfloat16 of its
+own, so the port hands out uint16 (``host_array``) and takes any 2-byte
+dtype, such as ml_dtypes.bfloat16 or uint16 (``device_tensor``).
 """
 
 from __future__ import annotations
@@ -19,29 +24,46 @@ from duckdb_vss_tpu_torch.utils.config import HNSWConfig
 GRAPH_FIELDS = GraphState._fields
 
 
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bf16 as its uint16 bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def device_tensor(arr: np.ndarray, dtype: torch.dtype,
+                  device: torch.device | str) -> torch.Tensor:
+    """A numpy array as a ``dtype`` tensor on ``device`` (a copy). For
+    bf16, ``arr`` holds the bit patterns in any 2-byte dtype."""
+    if dtype == torch.bfloat16:
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
+
+
 def index_from_arrays(arrays: dict[str, np.ndarray], config: HNSWConfig,
                       device: str | torch.device = "cuda",
                       **index_settings) -> HNSWIndex:
     """A port HNSWIndex holding ``arrays``: the four store fields, every
-    GraphState field, and ``dims``. Optional ``_next_slot`` and
+    GraphState field, and ``dims``. A 2-byte ``_vectors`` is a bf16
+    store (scalar_kind="bf16"). Optional ``_next_slot`` and
     ``_free_slots`` restore the store's slot allocator; by default the
     next slot follows the highest live slot and the free-list is empty.
-    ``index_settings`` go to the HNSWIndex constructor (seed, layout,
-    build_batch, ...)."""
-    vectors = np.asarray(arrays["_vectors"], np.float32)
+    The key map is rebuilt from ``_keys``. ``index_settings`` go to the
+    HNSWIndex constructor (seed, layout, build_batch, ...)."""
+    vectors = np.asarray(arrays["_vectors"])
     cap = vectors.shape[0]
+    scalar_kind = "bf16" if vectors.dtype.itemsize == 2 else "f32"
     idx = HNSWIndex(int(arrays["dims"]), config, capacity=cap, device=device,
-                    **index_settings)
+                    scalar_kind=scalar_kind, **index_settings)
     st = idx.store
     if st.capacity != cap or st.d_pad != vectors.shape[1]:
         raise ValueError(f"store shape {vectors.shape} is not a capacity "
                          f"bucket of width {st.d_pad}")
     dev = idx.device
-    st._vectors = torch.from_numpy(vectors.copy()).to(dev)
-    st._vec_sq = torch.from_numpy(
-        np.asarray(arrays["_vec_sq"], np.float32).copy()).to(dev)
-    st._valid = torch.from_numpy(
-        np.asarray(arrays["_valid"], np.bool_).copy()).to(dev)
+    st._vectors = device_tensor(vectors, st._dtype, dev)
+    st._vec_sq = device_tensor(arrays["_vec_sq"], torch.float32, dev)
+    st._valid = device_tensor(arrays["_valid"], torch.bool, dev)
     keys = np.asarray(arrays["_keys"], np.int64).copy()
     st._keys = keys
     live = np.nonzero(keys >= 0)[0]
@@ -51,17 +73,19 @@ def index_from_arrays(arrays: dict[str, np.ndarray], config: HNSWConfig,
                                    live.max() + 1 if len(live) else 0))
     st._free_slots = [int(s) for s in arrays.get("_free_slots", [])]
     idx.graph = GraphState(**{
-        f: torch.from_numpy(np.asarray(arrays[f], np.int32).copy()).to(dev)
-        for f in GRAPH_FIELDS})
+        f: device_tensor(arrays[f], torch.int32, dev) for f in GRAPH_FIELDS})
     return idx
 
 
 def index_to_arrays(index: HNSWIndex) -> dict[str, np.ndarray]:
-    """The arrays index_from_arrays takes, as numpy."""
+    """The arrays index_from_arrays takes, as numpy (a bf16 store as
+    uint16 bits), and ``scalar_kind``."""
+    index._ensure_loaded()
     st = index.store
     out = {
         "dims": np.int64(index.dims),
-        "_vectors": st._vectors.cpu().numpy(),
+        "scalar_kind": st.scalar_kind,
+        "_vectors": host_array(st._vectors),
         "_vec_sq": st._vec_sq.cpu().numpy(),
         "_valid": st._valid.cpu().numpy(),
         "_keys": st._keys.copy(),

@@ -81,3 +81,63 @@ def test_bf16_table_scores_like_jax():
                           torch.from_numpy(v).to(torch.bfloat16),
                           MetricKind.IP).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["l2sq", "cosine", "ip"])
+def test_pair_scores_matches_jax(metric):
+    """Row-aligned scores, zero-norm rows included (row 3 of q, rows 5
+    and 17 of v): both sides sum 48 f32 products, rtol 1e-5."""
+    q, v = _inputs(6)
+    a, b = q, v[:37]
+    want = np.asarray(jd.pair_scores(jnp.asarray(a), jnp.asarray(b),
+                                     JMetric(metric)))
+    got = td.pair_scores(torch.from_numpy(a), torch.from_numpy(b),
+                         MetricKind(metric)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if metric == "cosine":
+        z = torch.zeros((1, 8))
+        x = torch.ones((1, 8))
+        assert td.pair_scores(z, z, MetricKind.COSINE).item() == 0.0
+        assert td.pair_scores(z, x, MetricKind.COSINE).item() == 1.0
+        assert td.pair_scores(x, z, MetricKind.COSINE).item() == 1.0
+
+
+@pytest.mark.parametrize("name", sorted(jd.SCALAR_FUNCTIONS))
+def test_scalar_functions_match_jax(name):
+    """The six SQL scalar functions on the same inputs (rtol 1e-5: f32
+    sums in another order); array_value stacks scalars and columns."""
+    jfn, tfn = jd.SCALAR_FUNCTIONS[name], td.SCALAR_FUNCTIONS[name]
+    if name == "array_value":
+        col = np.arange(5, dtype=np.float32)
+        for args in ((1.0, 2.0, 3.0), (col, 2.0, col * 3)):
+            np.testing.assert_array_equal(
+                tfn(*args).numpy(), np.asarray(jfn(*args)), err_msg=str(args))
+        return
+    q, v = _inputs(7)
+    a, b = q[:20], v[:20]
+    want = np.asarray(jfn(jnp.asarray(a), jnp.asarray(b)))
+    got = tfn(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    # numpy arrays are taken as they are
+    np.testing.assert_allclose(tfn(a, b).numpy(), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("metric", ["l2sq", "cosine", "ip"])
+def test_metric_score_to_function_value_matches_jax(metric):
+    """Index scores turned into the SQL function's value equal the JAX
+    package's conversion and the function itself (rtol 1e-4, as the JAX
+    package's own test). No zero rows: there the cosine metric (0 for two
+    zero rows) and array_cosine_distance (1) differ by definition."""
+    rng = np.random.default_rng(8)
+    q = rng.normal(size=(4, 16)).astype(np.float32)
+    v = rng.normal(size=(8, 16)).astype(np.float32)
+    s = td.score_matrix(torch.from_numpy(q), torch.from_numpy(v),
+                        MetricKind(metric))
+    got = td.metric_score_to_function_value(s, MetricKind(metric)).numpy()
+    want = np.asarray(jd.metric_score_to_function_value(
+        jnp.asarray(s.numpy()), JMetric(metric)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    fn = {"l2sq": td.array_distance, "cosine": td.array_cosine_distance,
+          "ip": td.array_negative_inner_product}[metric]
+    direct = np.stack([fn(np.repeat(qi[None], 8, 0), v).numpy() for qi in q])
+    np.testing.assert_allclose(got, direct, rtol=1e-4, atol=1e-4)

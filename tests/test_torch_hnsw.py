@@ -216,8 +216,11 @@ def test_out_of_slice_calls_raise(jax_built):
     # two batches into an empty graph link mostly through batch peers;
     # tests/test_torch_insert.py holds that case against the JAX package
     assert (tk[:, 0] == np.arange(300)).mean() >= 0.9
+    # every call of the index surface is ported (tests/test_torch_
+    # hnsw_api.py holds them); settings that name nothing raise
     for bad in (dict(layout="tiles"), dict(traversal_dtype="f16"),
-                dict(descent="greedy")):
+                dict(descent="greedy"), dict(scalar_kind="f16"),
+                dict(query_transfer_dtype="f16")):
         with pytest.raises(ValueError):
             HNSWIndex(32, device="cpu", **bad)
 
