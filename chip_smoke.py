@@ -11,7 +11,9 @@ layout="flat", traversal_dtype="f32", use_pallas=True: the step-by-step
 beam, whose per-step scoring is kernel K2. Path 3: removals, isolate,
 compact, stats, save and load, a bf16 store, the query transfer dtypes,
 the augmented table, cluster, join and the stashed flat scan on that
-index (phase 8 below). The configuration is the
+index (phase 8 below). Path 4: the SQL layer, a disk-backed Database on
+the card driven through db.execute (phase 9 below). The configuration
+is the
 SIFT1M shape of ann-benchmarks' sift-128-euclidean: 1,000,000 x 128 f32
 base vectors and 10,000 queries, k=10, l2sq, with the HNSW defaults
 M=16, M0=32, ef_construction=128, ef_search=64. The data is SIFT-shaped
@@ -75,6 +77,26 @@ Phases (any failure raises and exits non-zero):
      >= 0.95); cluster at level 1 (heads of level >= 1, exact scores);
      join of a 10,000-row held-out index (no blocking pair); the stashed
      flat scan of 1,024 queries equal to the per-block scan. K1
+     launched, its plain version never;
+  9. main path 4, the SQL layer, counts set to 0 before and read after
+     (path4): Database(path=<tmp>, device="cuda"); the 1M base rows
+     loaded through Table.insert (WAL-logged), CREATE INDEX (the bulk
+     build), 200 single ORDER BY array_distance LIMIT 10 statements
+     (EXPLAIN shows HNSW_INDEX_SCAN; recall@10 >= 0.95, d within the f32
+     bound of the float64 distance; p50 and p99), the lateral join of a
+     10,000-row query table (100,000 rows, recall >= 0.95) at ef 64
+     through K1 and at SET hnsw_ef_search = 160 through the step-by-step
+     beam alone; min_by (the scan's ids), a filter over the index scan
+     (even ids only), the cosine FLAT_TOPN_SCAN and, under PRAGMA
+     disable_optimizer, the host TopN (both exact within ties), one
+     projected SELECT under torch.profiler (it must launch CUDA
+     kernels); DELETE of every tenth row (no deleted id back, recall
+     against the live rows), PRAGMA hnsw_compact_index, hnsw_index_info
+     (count = table rows); CHECKPOINT, pragma_database_size, reopen
+     (the lateral join equal key for key and distance for distance),
+     16,384 rows inserted into the WAL, reopen with replay (each at rank
+     1 of its own search in >= 0.99 of cases, recall >= 0.95). The
+     seconds of every step, with the host parts timed apart. K1
      launched, its plain version never.
 
 The line before the last is the kernel table as one JSON object; the
@@ -85,10 +107,12 @@ root: python3 chip_smoke.py
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -465,7 +489,8 @@ def profile_on_card(what, fn, smi):
     """Run fn once under torch.profiler and print how many device
     kernels it launched, how long the card was busy within its wall
     time, the five operators with the most device time and the port's
-    own kernels (printed, not checked)."""
+    own kernels. Returns the number of device kernels and copies (0 when
+    the profiler recorded no device activity)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -488,7 +513,7 @@ def profile_on_card(what, fn, smi):
         log(f"# profile of {what} on {smi}: {wall_ms:.1f} ms under the "
             "profiler; device time not measured (the profiler recorded no "
             "device activity)")
-        return
+        return 0
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     ops = sorted((e for e in events if e.device_type != DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)[:5]
@@ -496,10 +521,12 @@ def profile_on_card(what, fn, smi):
            if "gather_scores" in e.key or "fused_beam" in e.key]
     names = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms"
                       f" x{e.count}" for e in ops + own)
+    n_kernels = sum(e.count for e in kernels)
     log(f"# profile of {what} on {smi}: {wall_ms:.1f} ms under the profiler, "
-        f"{sum(e.count for e in kernels)} device kernels and copies, card "
+        f"{n_kernels} device kernels and copies, card "
         f"busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%} of the wall time); "
         f"most device time by operator: {names}")
+    return n_kernels
 
 
 def timed(dev, fn):
@@ -551,8 +578,6 @@ def path3(idx, all_vecs, extra_keys, q, n_base, want_base, make_rows, smi,
     keys of ``q`` among the first ``n_base`` rows, ``make_rows(n)`` draws
     n more rows from the data's generator. Raises on any failed check;
     returns what it measured."""
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -762,6 +787,350 @@ def path3(idx, all_vecs, extra_keys, q, n_base, want_base, make_rows, smi,
         f"{out.get('stash_ms', float('nan')):.2f}, per block "
         f"{out.get('blockwise_ms', float('nan')):.2f}")
     check(same, "the stashed flat scan differs from the per-block scan")
+    return out
+
+
+@contextlib.contextmanager
+def clocked(acc, dev, *targets):
+    """For the block's duration, sum into acc[key] the seconds spent in
+    each ``(owner, method name, key)`` of ``targets`` (an instance, a
+    class or a module), the card synchronized before the clock stops."""
+    import torch
+
+    saved = []
+    for owner, name, key in targets:
+        fn = getattr(owner, name)
+        acc.setdefault(key, 0.0)
+
+        def wrapper(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                acc[_key] += time.perf_counter() - t0
+
+        saved.append((owner, name, owner.__dict__.get(name)))
+        setattr(owner, name, wrapper)
+    try:
+        yield acc
+    finally:
+        for owner, name, old in reversed(saved):
+            if old is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, old)
+
+
+def vec_literal(v) -> str:
+    """A FLOAT[d] SQL literal that parses back to ``v``'s f32 values
+    exactly (each element as the shortest repr of its double)."""
+    return ("[" + ", ".join(repr(float(x)) for x in v)
+            + f"]::FLOAT[{len(v)}]")
+
+
+def exact_scores(vecs, q, metric):
+    """float64 array_distance (l2) or array_cosine_distance of q against
+    every row, in chunks."""
+    import numpy as np
+
+    q = q.astype(np.float64)
+    out = np.empty(len(vecs), np.float64)
+    for off in range(0, len(vecs), 200_000):
+        v = vecs[off:off + 200_000].astype(np.float64)
+        if metric == "l2":
+            out[off:off + len(v)] = np.sqrt(((v - q) ** 2).sum(1))
+        else:
+            out[off:off + len(v)] = 1.0 - v @ q / np.maximum(
+                np.sqrt((v * v).sum(1) * (q @ q)), 1e-30)
+    return out
+
+
+def within_ties(got_ids, got_d, exact, k, tol, what):
+    """An exact top-k within ties: k distinct ids, each at most the
+    k-th exact distance + tol from the query, and each emitted distance
+    within tol of its exact value."""
+    import numpy as np
+
+    kth = np.partition(exact, k - 1)[k - 1]
+    check(len(got_ids) == k and len(set(got_ids.tolist())) == k,
+          f"{what}: {len(got_ids)} rows, {len(set(got_ids.tolist()))} "
+          "distinct")
+    check(bool((exact[got_ids] <= kth + tol).all()),
+          f"{what}: a row beyond the exact {k}-th distance {kth}")
+    err = float(np.abs(got_d - exact[got_ids]).max())
+    check(err <= tol, f"{what}: emitted distance off by {err} > {tol}")
+    return err
+
+
+def path4(dev, vecs, q, want, new, smi, tmp_root, k=K, n_single=200):
+    """Main path 4, the SQL layer: a disk-backed Database on ``dev`` and
+    db.execute(...) for every step but the two bulk row loads (through
+    Table.insert, which the WAL logs). ``vecs`` are the rows of ids
+    0..n-1, ``want`` the exact top-k ids of ``q`` among them, ``new``
+    rows inserted after the reopen. Raises on any failed check; returns
+    what it measured."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from duckdb_vss_tpu_torch import MetricKind
+    from duckdb_vss_tpu_torch.models import graph as port_graph
+    from duckdb_vss_tpu_torch.models.flat import FlatIndex
+    from duckdb_vss_tpu_torch.models.hnsw import HNSWIndex
+    from duckdb_vss_tpu_torch.ops import fused_beam as fb
+    from duckdb_vss_tpu_torch.sql import engine
+    from duckdb_vss_tpu_torch.sql.engine import Database, open_database
+
+    n, d = vecs.shape
+    nq = len(q)
+    out = {}
+    f32_rel = 2 * d * 2.0 ** -24  # a sum of d f32 squares, then its root
+    root = tempfile.mkdtemp(dir=tmp_root)
+    path = os.path.join(root, "db")
+    wal_path = os.path.join(path, "vss.wal")
+
+    def sql(stmt):
+        return db.execute(stmt)
+
+    def truth(keys, rows, qs):
+        flat = FlatIndex(d, MetricKind.L2SQ, capacity=len(keys), device=dev)
+        flat.add(rows, keys)
+        return flat.search(qs, k)[1]
+
+    # 1. schema and the bulk load (logged)
+    db = Database(path=path, device=dev)
+    sql("SET hnsw_enable_experimental_persistence = true")
+    sql(f"CREATE TABLE items (id BIGINT, vec FLOAT[{d}])")
+    items = db.table("items")
+    acc = {}
+    with clocked(acc, dev, (db.wal, "append", "wal")):
+        _, out["load_s"] = timed(dev, lambda: items.insert(
+            {"id": np.arange(n, dtype=np.int64), "vec": vecs}))
+    out["load_wal_s"] = acc["wal"]
+    out["wal_mib"] = os.path.getsize(wal_path) / 2**20
+    log(f"# path 4 load on {smi}: {n} rows through Table.insert in "
+        f"{out['load_s']:.2f} s, of which the WAL append {acc['wal']:.2f} s "
+        f"({out['wal_mib']:.0f} MiB, fsync on)")
+
+    # 2. CREATE INDEX: the row gather on the host, the bulk build on the card
+    acc = {}
+    with clocked(acc, dev, (items, "_gather_index_rows", "gather"),
+                 (HNSWIndex, "add", "build")):
+        _, out["create_index_s"] = timed(dev, lambda: sql(
+            "CREATE INDEX items_idx ON items USING HNSW (vec)"))
+    out["create_gather_s"], out["create_build_s"] = acc["gather"], acc["build"]
+    index = db.indexes["items_idx"].index
+    check(index.device == dev and len(index) == n,
+          f"the index holds {len(index)} rows on {index.device}")
+    log(f"# path 4 CREATE INDEX on {smi}: {out['create_index_s']:.2f} s: row "
+        f"gather {acc['gather']:.2f} s, build {acc['build']:.2f} s")
+
+    # 3. single-vector ORDER BY ... LIMIT k statements
+    def topk_stmt(qv, fn="array_distance", where=""):
+        lit = vec_literal(qv)
+        return (f"SELECT id, {fn}(vec, {lit}) AS d FROM items {where}"
+                f"ORDER BY {fn}(vec, {lit}) LIMIT {k}")
+
+    plan = sql("EXPLAIN " + topk_stmt(q[0]))
+    check("HNSW_INDEX_SCAN" in plan, f"no index scan in the plan:\n{plan}")
+    sql(topk_stmt(q[0]))  # the first search builds the int8 layout
+    got, ms, acc = [], [], {}
+    with clocked(acc, dev, (index, "search", "search"),
+                 (items, "fetch", "fetch")):
+        for i in range(n_single):
+            res, sec = timed(dev, lambda: sql(topk_stmt(q[i])))
+            ms.append(sec * 1e3)
+            exact = np.sqrt(((vecs[res["id"]].astype(np.float64) - q[i]) ** 2)
+                            .sum(1))
+            check(bool((np.abs(res["d"] - exact)
+                        <= f32_rel * exact + 1e-6).all()),
+                  f"statement {i}: d off the exact distance beyond the f32 "
+                  "bound")
+            got.append(res["id"])
+    got = np.stack(got)
+    out["single_recall"] = recall_of(got, want[:n_single], k)
+    out["single_p50_ms"], out["single_p99_ms"] = (
+        float(np.percentile(ms, 50)), float(np.percentile(ms, 99)))
+    log(f"# path 4 single statements on {smi}: {n_single} ORDER BY "
+        f"array_distance LIMIT {k}: recall@{k} {out['single_recall']:.4f}, "
+        f"p50 {out['single_p50_ms']:.2f} ms, p99 {out['single_p99_ms']:.2f}"
+        f" ms; of the {sum(ms):.0f} ms in all HNSWIndex.search "
+        f"{acc['search'] * 1e3:.0f} ms, Table.fetch {acc['fetch'] * 1e3:.0f}"
+        " ms, the rest parse, plan and projection")
+    check(out["single_recall"] >= MIN_RECALL,
+          f"single statements: recall {out['single_recall']} < {MIN_RECALL}")
+    del items, index  # what follows reaches them through db
+
+    # 4. the lateral join: one batched index search for every outer row
+    sql(f"CREATE TABLE queries (qid BIGINT, qvec FLOAT[{d}])")
+    db.table("queries").insert({"qid": np.arange(nq, dtype=np.int64),
+                                "qvec": q})
+    join_stmt = (
+        "SELECT qid, id, d FROM queries, LATERAL (SELECT id, "
+        "array_distance(items.vec, queries.qvec) AS d FROM items ORDER BY "
+        f"array_distance(items.vec, queries.qvec) LIMIT {k})")
+    plan = sql("EXPLAIN " + join_stmt)
+    check("HNSW_INDEX_JOIN" in plan, f"no index join in the plan:\n{plan}")
+
+    def lateral(name, truth_ids, removed=None):
+        acc = {}
+        with clocked(acc, dev, (db.indexes["items_idx"].index, "search",
+                                "search")):
+            res, sec = timed(dev, lambda: sql(join_stmt))
+        check(len(res["id"]) == nq * k, f"{name}: {len(res['id'])} rows")
+        order = np.argsort(res["qid"], kind="stable")
+        ids = res["id"][order].reshape(nq, k)
+        dist = res["d"][order].reshape(nq, k)
+        check(bool((res["qid"][order].reshape(nq, k)
+                    == np.arange(nq)[:, None]).all()), f"{name}: qid groups")
+        rec = recall_of(ids, truth_ids, k)
+        back = 0 if removed is None else int(removed(ids).sum())
+        log(f"# path 4 lateral join ({name}) on {smi}: {nq * k} rows in "
+            f"{sec:.3f} s (HNSWIndex.search {acc['search']:.3f} s, host "
+            f"assembly {sec - acc['search']:.3f} s), recall@{k} {rec:.4f}, "
+            f"deleted ids returned {back}")
+        check(np.isfinite(dist).all(), f"{name}: non-finite d")
+        check(rec >= MIN_RECALL, f"{name}: recall {rec} < {MIN_RECALL}")
+        check(back == 0, f"{name}: {back} deleted ids returned")
+        out[f"join_{name}_s"], out[f"join_{name}_search_s"] = (
+            sec, acc["search"])
+        out[f"join_{name}_recall"] = rec
+        return ids, dist
+
+    launches, plain = fb.fused_beam_search.launches, fb.beam_search_plain.calls
+    lateral("ef64", want)
+    check(fb.fused_beam_search.launches + fb.beam_search_plain.calls
+          > launches + plain, "the lateral join did not run the fused beam")
+    sql("SET hnsw_ef_search = 160")
+    steps = port_graph.beam_search.steps
+    launches, plain = fb.fused_beam_search.launches, fb.beam_search_plain.calls
+    lateral("ef160", want)
+    check(port_graph.beam_search.steps > steps
+          and fb.fused_beam_search.launches == launches
+          and fb.beam_search_plain.calls == plain,
+          "ef 160 did not run the step-by-step beam alone")
+    sql("SET hnsw_ef_search = 0")
+
+    # 5. min_by, a filter over the index scan, and the brute-force paths
+    qv = q[1]
+    lit = vec_literal(qv)
+    scan_ids = sql(topk_stmt(qv))["id"]
+    res = sql(f"SELECT min_by(id, array_distance(vec, {lit}), {k}) AS ids "
+              "FROM items")
+    check(list(res["ids"][0]) == scan_ids.tolist(),
+          f"min_by {list(res['ids'][0])} != the scan's {scan_ids.tolist()}")
+    filt = topk_stmt(qv, where="WHERE id % 2 = 0 ")
+    plan = sql("EXPLAIN " + filt)
+    check(plan.index("FILTER") < plan.index("HNSW_INDEX_SCAN"),
+          f"no filter over the index scan:\n{plan}")
+    even = sql(filt)["id"]
+    check(len(even) > 0 and bool((even % 2 == 0).all()),
+          f"WHERE id % 2 = 0 gave {even.tolist()}")
+    cos = topk_stmt(qv, fn="array_cosine_distance")
+    check("FLAT_TOPN_SCAN" in sql("EXPLAIN " + cos), "no flat scan for cosine")
+    res, out["flat_cosine_s"] = timed(dev, lambda: sql(cos))
+    err_cos = within_ties(res["id"], res["d"], exact_scores(vecs, qv, "cos"),
+                          k, 5 * d * 2.0 ** -24, "cosine flat scan")
+    sql("PRAGMA disable_optimizer")
+    plan = sql("EXPLAIN " + topk_stmt(qv))
+    check("TOP_N" in plan and "HNSW_INDEX_SCAN" not in plan,
+          f"the optimizer was not off:\n{plan}")
+    res, out["host_topn_s"] = timed(dev, lambda: sql(topk_stmt(qv)))
+    exact = exact_scores(vecs, qv, "l2")
+    err_l2 = within_ties(res["id"], res["d"], exact, k,
+                         f32_rel * float(exact.max()), "host TopN")
+    sql("PRAGMA enable_optimizer")
+    log(f"# path 4 min_by = the scan's ids; filter kept {len(even)} even ids;"
+        f" cosine FLAT_TOPN_SCAN {out['flat_cosine_s']:.2f} s (first, builds"
+        f" the flat block), host TopN {out['host_topn_s']:.2f} s: both exact"
+        f" within ties (max |d - exact| {err_cos:.2e}, {err_l2:.2e})")
+    if dev.type == "cuda":
+        n_kernels = profile_on_card("one projected SELECT (index scan)",
+                                    lambda: sql(topk_stmt(q[2])), smi)
+        check(n_kernels > 0, "the projected SELECT launched no CUDA kernel")
+
+    # 6. DELETE, then compact
+    dead = np.arange(0, n, 10)
+    n_del, out["delete_s"] = timed(dev, lambda: sql(
+        "DELETE FROM items WHERE id % 10 = 0"))
+    check(n_del == len(dead), f"deleted {n_del} rows")
+    live = np.setdiff1d(np.arange(n), dead)
+    want_live = truth(live, vecs[live], q)
+
+    def gone(ids):
+        return np.isin(ids, dead)
+
+    lateral("deleted", want_live, removed=gone)
+    _, out["compact_s"] = timed(dev, lambda: sql(
+        "PRAGMA hnsw_compact_index('items_idx')"))
+    info = sql("SELECT * FROM pragma_hnsw_index_info()")
+    n_rows = sql("SELECT count(*) AS n FROM items")["n"][0]
+    check(int(info["count"][0]) == n_rows == len(live)
+          and info["levels"][0][0]["nodes"] == len(live),
+          f"index count {info['count'][0]} vs table {n_rows}")
+    ids_c, dist_c = lateral("compacted", want_live,
+                            removed=gone)
+    log(f"# path 4 DELETE {n_del} rows on {smi}: {out['delete_s']:.2f} s; "
+        f"compact {out['compact_s']:.2f} s; hnsw_index_info count "
+        f"{info['count'][0]} = table rows {n_rows}")
+
+    # 7. CHECKPOINT, reopen, insert into the WAL, reopen with replay
+    acc = {}
+    with clocked(acc, dev, (engine, "_serialize_table", "tables")):
+        _, out["checkpoint_s"] = timed(dev, lambda: sql("CHECKPOINT"))
+    size = sql("SELECT * FROM pragma_database_size()")
+    log(f"# path 4 CHECKPOINT on {smi}: {out['checkpoint_s']:.2f} s (table "
+        f"serialization {acc['tables']:.2f} s); pragma_database_size "
+        + json.dumps({c: int(v[0]) for c, v in size.items()}))
+
+    def reopen(name):
+        nonlocal db
+        db.wal.close()
+        del db
+        gc.collect()
+        acc = {}
+        with clocked(acc, dev, (engine, "restore_table", "tables"),
+                     (HNSWIndex, "add", "replay_insert")):
+            db, sec = timed(dev, lambda: open_database(path, device=dev))
+        out[f"reopen_{name}_s"] = sec
+        out[f"reopen_{name}_tables_s"] = acc["tables"]
+        out[f"reopen_{name}_replay_insert_s"] = acc["replay_insert"]
+        log(f"# path 4 reopen ({name}) on {smi}: {sec:.2f} s (table rows "
+            f"restored in {acc['tables']:.2f} s, WAL inserts replayed into "
+            f"the index in {acc['replay_insert']:.2f} s)")
+
+    reopen("checkpoint")
+    ids_r, dist_r = lateral("reopened", want_live,
+                            removed=gone)
+    check(np.array_equal(ids_r, ids_c) and np.array_equal(dist_r, dist_c),
+          f"after the reopen {int((ids_r != ids_c).sum())} keys and "
+          f"{int((dist_r != dist_c).sum())} distances differ")
+    new_ids = np.arange(n, n + len(new), dtype=np.int64)
+    _, out["insert_s"] = timed(dev, lambda: db.table("items").insert(
+        {"id": new_ids, "vec": new}))
+    log(f"# path 4 after the reopen: the lateral join equals the one before "
+        f"the close, key for key and distance for distance; INSERT of "
+        f"{len(new)} rows {out['insert_s']:.2f} s (WAL "
+        f"{os.path.getsize(wal_path) / 2**20:.0f} MiB)")
+    reopen("replay")
+    check(len(db.indexes["items_idx"].index) == len(live) + len(new),
+          "the replay did not restore the inserted rows")
+    sql(f"CREATE TABLE fresh (fid BIGINT, fvec FLOAT[{d}])")
+    db.table("fresh").insert({"fid": new_ids, "fvec": new})
+    res = sql("SELECT fid, id FROM fresh, LATERAL (SELECT id FROM items "
+              "ORDER BY array_distance(items.vec, fresh.fvec) LIMIT 1)")
+    out["self_recall"] = float(np.mean(res["id"] == res["fid"]))
+    all_keys = np.r_[live, new_ids]
+    lateral("replayed", truth(all_keys, np.concatenate([vecs[live], new]), q),
+            removed=gone)
+    log(f"# path 4 replayed rows at rank 1 of their own search: "
+        f"{out['self_recall']:.4f}")
+    check(out["self_recall"] >= MIN_SELF_RECALL,
+          f"self-recall {out['self_recall']} < {MIN_SELF_RECALL}")
+    db.wal.close()
     return out
 
 
@@ -1041,6 +1410,7 @@ def main(argv=None) -> int:
     p3 = path3(idx, np.concatenate([vecs, new]), extra_keys, q, n, want,
                make_rows, smi)
     k1_launches_3 = fb.fused_beam_search.launches
+    k2_launches_3 = fg.gather_scores_kernel.launches
     log(f"# path 3 on {smi}: {time.perf_counter() - t0:.1f} s; K1 launches "
         f"{k1_launches_3}, plain version calls {fb.beam_search_plain.calls}"
         f"; K2 launches {fg.gather_scores_kernel.launches}; measured "
@@ -1048,6 +1418,26 @@ def main(argv=None) -> int:
     check(k1_launches_3 > 0, "path 3 never launched K1")
     check(fb.beam_search_plain.calls == 0,
           "path 3 ran K1's plain version")
+
+    # ---- 9. main path 4: the SQL layer on a database on the card --------
+    del idx, store, step_ids, g_args  # path 4 builds its own index
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(here, "build")) as tmp:
+        p4 = path4(dev, vecs, q, want, new, smi, tmp)
+    k1_launches_4 = fb.fused_beam_search.launches
+    k2_launches_4 = fg.gather_scores_kernel.launches
+    log(f"# path 4 on {smi}: {time.perf_counter() - t0:.1f} s; K1 launches "
+        f"{k1_launches_4}, plain version calls {fb.beam_search_plain.calls}"
+        f"; K2 launches {fg.gather_scores_kernel.launches}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        "measured " + json.dumps({name: round(v, 4)
+                                  for name, v in p4.items()}))
+    check(k1_launches_4 > 0, "path 4 never launched K1")
+    check(fb.beam_search_plain.calls == 0,
+          "path 4 ran K1's plain version")
     log(f"# total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -1055,7 +1445,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "duckdb_vss_tpu_torch/csrc/fused_beam.cu",
         "replaces": "duckdb_vss_tpu/ops/pallas_beam.py:133",
-        "launches": k1_launches + k1_launches_2 + k1_launches_3,
+        "launches": (k1_launches + k1_launches_2 + k1_launches_3
+                     + k1_launches_4),
+        "launches_by_path": [k1_launches, k1_launches_2, k1_launches_3,
+                             k1_launches_4],
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1068,7 +1461,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "duckdb_vss_tpu_torch/csrc/gather_scores.cu",
         "replaces": "duckdb_vss_tpu/ops/pallas_gather.py:40",
-        "launches": k2_launches,
+        "launches": k2_launches + k2_launches_3 + k2_launches_4,
+        "launches_by_path": [0, k2_launches, k2_launches_3, k2_launches_4],
         "max_abs_err": err2,
         "ms": k2_ms,
         "plain_ms": p2_ms,

@@ -10,6 +10,12 @@ as numpy, so the port can run on the exact graph the JAX package built;
 A bf16 store crosses as its bit patterns: numpy has no bfloat16 of its
 own, so the port hands out uint16 (``host_array``) and takes any 2-byte
 dtype, such as ml_dtypes.bfloat16 or uint16 (``device_tensor``).
+
+``database_from_arrays`` does the same for a whole SQL database: its
+settings, its tables (the column declarations, the columns as numpy as
+a checkpoint writes them, sql/engine.table_arrays, and the live flags)
+and its indexes (each through index_from_arrays); ``database_to_arrays``
+is its inverse.
 """
 
 from __future__ import annotations
@@ -95,3 +101,56 @@ def index_to_arrays(index: HNSWIndex) -> dict[str, np.ndarray]:
     for f in GRAPH_FIELDS:
         out[f] = getattr(index.graph, f).cpu().numpy()
     return out
+
+
+def database_from_arrays(arrays: dict, device: str | torch.device = "cuda"):
+    """An in-memory port Database on ``device`` holding ``arrays``:
+
+    {"settings": {...},
+     "tables": {name: {"columns": {col: "BIGINT" | ["FLOAT", dims] | ...},
+                       "arrays": {col: numpy column, "__live__": bool}}},
+     "indexes": {name: {"table": ..., "column": ..., "config": {"metric":
+                 "l2sq", "m": .., "m0": .., "ef_construction": ..,
+                 "ef_search": ..}, "arrays": index_from_arrays' arrays}}}
+
+    A vector column is [rows, dims] float32 with all-NaN rows for NULL,
+    as sql/engine.table_arrays gives it. Rowids stay positions, so the
+    carried indexes' keys still name their rows."""
+    from duckdb_vss_tpu_torch.sql import engine
+
+    db = engine.Database(device=device)
+    db.settings.update(arrays.get("settings", {}))
+    for name, tab in arrays["tables"].items():
+        t = engine.Table(db, name, {c: tuple(ty) if isinstance(ty, list)
+                                    else ty
+                                    for c, ty in tab["columns"].items()})
+        engine.restore_table(t, tab["arrays"], tab["arrays"]["__live__"])
+        db.tables[name] = t
+    for name, ent in arrays["indexes"].items():
+        idx = index_from_arrays(ent["arrays"],
+                                HNSWConfig.from_options(ent["config"]),
+                                device=db.device)
+        db.indexes[name] = engine.IndexEntry(name, db.tables[ent["table"]],
+                                             ent["column"], idx)
+    return db
+
+
+def database_to_arrays(db) -> dict:
+    """A port Database as database_from_arrays takes it."""
+    from duckdb_vss_tpu_torch.sql import engine
+
+    tables = {}
+    for name, t in db.tables.items():
+        cols, arrs = engine.table_arrays(t)
+        tables[name] = {"columns": cols, "arrays": arrs}
+    indexes = {}
+    for name, e in db.indexes.items():
+        cfg = e.index.config
+        indexes[name] = {
+            "table": e.table.name, "column": e.column,
+            "config": {"metric": cfg.metric.value, "m": cfg.m,
+                       "m0": cfg.m0, "ef_construction": cfg.ef_construction,
+                       "ef_search": cfg.ef_search},
+            "arrays": index_to_arrays(e.index)}
+    return {"settings": dict(db.settings), "tables": tables,
+            "indexes": indexes}

@@ -116,7 +116,8 @@ _LIB: list = []  # [] until the first get_lib, then [CDLL or None]
 
 
 def get_lib() -> ctypes.CDLL | None:
-    """The bound vss_store library, or None (the .npz fallback)."""
+    """The bound vss_store library (index files and the block file), or
+    None (the .npz fallback, and the block store's pure-Python file)."""
     if not _LIB:
         lib = _open_lib()
         if lib is not None:
@@ -142,6 +143,21 @@ def get_lib() -> ctypes.CDLL | None:
                 ctypes.c_uint64]
             lib.vss_reader_close.restype = None
             lib.vss_reader_close.argtypes = [ctypes.c_void_p]
+            # the block file of utils/blockstore.py, in the same library
+            lib.vss_bf_open.restype = ctypes.c_void_p
+            lib.vss_bf_open.argtypes = [ctypes.c_char_p, ctypes.c_uint32]
+            lib.vss_bf_total_blocks.restype = ctypes.c_int64
+            lib.vss_bf_total_blocks.argtypes = [ctypes.c_void_p]
+            lib.vss_bf_write.restype = ctypes.c_int
+            lib.vss_bf_write.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                         ctypes.c_void_p, ctypes.c_uint32]
+            lib.vss_bf_read.restype = ctypes.c_int64
+            lib.vss_bf_read.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                        ctypes.c_void_p, ctypes.c_uint32]
+            lib.vss_bf_flush.restype = ctypes.c_int
+            lib.vss_bf_flush.argtypes = [ctypes.c_void_p]
+            lib.vss_bf_close.restype = ctypes.c_int
+            lib.vss_bf_close.argtypes = [ctypes.c_void_p]
         _LIB.append(lib)
     return _LIB[0]
 
