@@ -12,11 +12,13 @@ beam, whose per-step scoring is kernel K2. Path 3: removals, isolate,
 compact, stats, save and load, a bf16 store, the query transfer dtypes,
 the augmented table, cluster, join and the stashed flat scan on that
 index (phase 8 below). Path 4: the SQL layer, a disk-backed Database on
-the card driven through db.execute (phase 9 below). The configuration
-is the
-SIFT1M shape of ann-benchmarks' sift-128-euclidean: 1,000,000 x 128 f32
-base vectors and 10,000 queries, k=10, l2sq, with the HNSW defaults
-M=16, M0=32, ef_construction=128, ef_search=64. The data is SIFT-shaped
+the card driven through db.execute (phase 9 below). Path 5: the
+sharded index (parallel/sharded.py), four shards of the same rows on
+the one card, in one process and in two (phase 10 below). The
+configuration is the SIFT1M shape of ann-benchmarks'
+sift-128-euclidean: 1,000,000 x 128 f32 base vectors and 10,000
+queries, k=10, l2sq, with the HNSW defaults M=16, M0=32,
+ef_construction=128, ef_search=64. The data is SIFT-shaped
 clustered data made from --seed with bench.py's generator (4096
 centres, sigma 0.25). Ground truth is the port's own exact f32
 FlatIndex scan.
@@ -28,7 +30,11 @@ Phases (any failure raises and exits non-zero):
      -Xptxas -v summary;
   3. main path 1: build + search at full width, with every kernel launch
      count set to 0 just before and read just after; requires recall@10
-     >= 0.95 against the flat scan, K1 launched, its plain version not;
+     >= 0.95 against the flat scan, K1 launched, its plain version not.
+     Then the measured CPU baseline (utils/cpu_baseline.py, native/
+     cpu_hnsw.cpp compiled for the host), 1,000 queries on every core
+     over that index's graph at ef 64: every id in range, recall and
+     QPS recorded with the CPU's name and thread count;
   4. kernel check: K1 against its plain PyTorch version on the same card
      inputs (id-set overlap >= 0.95, scores within rtol/atol 3e-3 where
      the ids agree: bf16 rounding of the products; equal n_dist and
@@ -98,6 +104,24 @@ Phases (any failure raises and exits non-zero):
      1 of its own search in >= 0.99 of cases, recall >= 0.95). The
      seconds of every step, with the host parts timed apart. K1
      launched, its plain version never.
+ 10. main path 5, the sharded index, counts set to 0 before and read
+     after (path5): (a) ShardedHNSWIndex on make_mesh(4) with 262,144
+     rows a shard, the 1M rows bulk-built shard by shard (the capacity
+     must not grow), the queries at the default ef_local (32: recall@10
+     >= 0.90) and at ef_local=64 (>= 0.95), K1 once per shard per chunk,
+     one search under tracing.trace + annotate (the trace must hold the
+     region and a K1 kernel event); (b) remove every tenth key (none
+     returned), isolate, compact, stats (count = live rows), recall >=
+     0.95 at ef_local=64, save and load (keys and scores equal); (c) this
+     script again in two processes (--sharded-rank), a gloo group on the
+     one card, two shards each, the same rows from --seed: both ranks
+     return the same keys and scores, and rank 0's file loaded here
+     returns them too; the key overlap with (a) is printed, not checked
+     (the card's bulk build is not bit-reproducible). K1 launched, its
+     plain version never. Then K1 against its plain version at the
+     sharded default (ef 32, expand 4, 16 steps) on shard 0's tables of
+     that file, B=1024, and its time at B=8192 beside its plain
+     version's and its bound.
 
 The line before the last is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Run from the repository
@@ -355,6 +379,21 @@ def beam_bound_ms(args, kw, n_expanded, n_dist):
     tiles_ms = (n_expanded * (m0 * d + 3 * m0 * 4) + io) / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", tiles_ms * 1e3)
+
+
+def time_beam(args, kw):
+    """K1's time, its bound from this run's counts and the log line's
+    tail that states both bounds."""
+    from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search
+    from duckdb_vss_tpu_torch.utils.timing import device_time
+
+    _, _, n_dist, n_exp = fused_beam_search(*args, **kw)
+    ms = device_time(lambda: fused_beam_search(*args, **kw), iters=10) * 1e3
+    bound, by, tiles = beam_bound_ms(args, kw, int(n_exp), int(n_dist))
+    return ms, bound, by, tiles, (
+        f"bound {bound:.4f} ms ({by}: {int(n_exp)} meta rows, "
+        f"{int(n_dist)} kept rows), the kernel at {bound / ms:.1%} of "
+        f"it; with whole tiles read {tiles:.4f} ms, {tiles / ms:.1%}")
 
 
 def recall_of(got, want, k):
@@ -1134,10 +1173,333 @@ def path4(dev, vecs, q, want, new, smi, tmp_root, k=K, n_single=200):
     return out
 
 
+def sift_like(seed, n=N, nq=NQ, d=D):
+    """The run's data from ``seed``: base rows, their centres, queries,
+    and the generator (for rows drawn later)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vecs, centers = make_data(rng, n, d)
+    q = (centers[rng.integers(0, len(centers), nq)]
+         + 0.25 * rng.normal(size=(nq, d)).astype(np.float32))
+    return vecs, centers, q, rng
+
+
+def cpu_name() -> str:
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    return "an unnamed CPU"
+
+
+def cpu_baseline_phase(idx, q, want, k=K, n_q=1000, ef=64):
+    """The measured CPU baseline (utils/cpu_baseline.py: native/
+    cpu_hnsw.cpp compiled for this host), one query per thread on every
+    core, over the index's own graph at ef: recall@k and QPS, recorded,
+    not held to a floor. The graph is bulk-built for the mxu descent's
+    exact seeding; the baseline's one-entry greedy descent finds fewer
+    of the neighbours there, in the JAX package's binding alike
+    (tests/test_torch_cpu_baseline.py). Returns what it measured."""
+    import numpy as np
+
+    from duckdb_vss_tpu_torch.utils import cpu_baseline
+
+    out = {}
+    t0 = time.perf_counter()
+    cpu_baseline.get_lib()
+    out["lib_s"] = time.perf_counter() - t0
+    base = cpu_baseline.CPUBaseline(idx)
+    ids, secs = base.search(q[:n_q], k, ef)
+    check(ids.shape == (n_q, k) and (ids < len(base.vectors)).all(),
+          "CPU baseline: ids out of range")
+    keys = np.where(ids >= 0, idx.store._keys[ids.clip(0)], -1)
+    out["recall"] = recall_of(keys, want[:n_q], k)
+    out["qps"] = n_q / secs
+    log(f"# CPU baseline on {cpu_name()}, {os.cpu_count()} threads, over "
+        f"path 1's graph: {n_q} queries at ef {ef} = {out['qps']:.0f} QPS, "
+        f"recall@{k} {out['recall']:.4f} (one entry node, greedy descent; "
+        f"library built in {out['lib_s']:.1f} s)")
+    return out
+
+
+def sharded_beam_inputs(sh, queries_np, ef, shard=0):
+    """K1's inputs exactly as the sharded search builds them for one of
+    its shards (the search_graph default of 4 descent seeds)."""
+    import torch
+
+    from duckdb_vss_tpu_torch.models.graph import mxu_descent, seed_beam
+    from duckdb_vss_tpu_torch.utils.padding import pad_2d_np
+
+    qd = torch.from_numpy(pad_2d_np(queries_np, len(queries_np),
+                                    sh.d_pad)).to(sh.device)
+    q_sq = (qd * qd).sum(-1)
+    uv, uvsq, unode = sh._upper_cache[shard]
+    nv, _scale, _sq, meta = sh._nbr_cache[shard]
+    metric = sh.config.metric
+    seeds, _ = mxu_descent(uv, uvsq, unode, sh.graph.entry_node[shard], qd,
+                           metric, 4)
+    seed_s, seed_i = seed_beam(sh._vectors[shard], sh._vec_sq[shard], seeds,
+                               qd, q_sq, metric, ef)
+    return (qd, q_sq, seed_s, seed_i, meta, nv)
+
+
+def trace_names(log_dir):
+    """(every event name, the kernel events' names) of the one trace
+    file utils/tracing.trace wrote into log_dir."""
+    import glob
+
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"trace files in {log_dir}: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    return names, kernels
+
+
+def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
+          cap=262_144):
+    """Main path 5, the sharded index on the one card: (a) one process,
+    4 shards of 1M x 128 bulk-built, searched at the default ef_local and
+    at ef_local=64 (K1 once per shard per chunk), under tracing.trace;
+    (b) remove, isolate, compact, stats, save and load; (c) two processes
+    on the card in a gloo group, 2 shards each, and rank 0's file loaded
+    here. Raises on any failed check; returns what it measured and the
+    loaded index of (c)."""
+    import numpy as np
+    import torch
+
+    from duckdb_vss_tpu_torch import HNSWConfig, MetricKind
+    from duckdb_vss_tpu_torch.models.flat import FlatIndex
+    from duckdb_vss_tpu_torch.ops import fused_beam as fb
+    from duckdb_vss_tpu_torch.parallel.sharded import (ShardedHNSWIndex,
+                                                       ef_local_policy,
+                                                       make_mesh)
+    from duckdb_vss_tpu_torch.utils import tracing
+
+    n, d = vecs.shape
+    nq, out = len(q), {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    build_dir = os.path.join(here, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    keys = np.arange(n, dtype=np.int64)
+    n_chunks = -(-nq // 8192)
+
+    # (a) one process: four shards of the 1M rows
+    mesh = make_mesh(n_shards, device=dev)
+    sh = ShardedHNSWIndex(d, HNSWConfig(), mesh, capacity_per_shard=cap)
+    _, out["build_s"] = timed(dev, lambda: sh.add(vecs, keys))
+    shard_s = [round(sum(st["phase_s"].values()), 2) for st in sh.build_stats]
+    log(f"# path 5 build on {smi}: {n} rows into {n_shards} shards in "
+        f"{out['build_s']:.2f} s (bulk build per shard {shard_s} s); counts "
+        f"{sh.counts.tolist()}, capacity per shard {sh.cap}")
+    check(sh.cap == cap, f"the capacity grew to {sh.cap}: K1 would leave")
+    _, out["layout_s"] = timed(dev, lambda: sh.search(q[:64], k))
+    check(sh._nbr_cache is not None, "the sharded search runs without the "
+          "int8 layout")
+    ef_def = ef_local_policy(sh.config.ef_search, k, n_shards)
+    before = fb.fused_beam_search.launches
+    (s_def, k_def), out["search_s"] = timed(dev, lambda: sh.search(q, k))
+    launched = fb.fused_beam_search.launches - before
+    out["recall_default"] = recall_of(k_def, want, k)
+    (_, k64), out["search_ef64_s"] = timed(
+        dev, lambda: sh.search(q, k, ef_local=64))
+    out["recall_ef64"] = recall_of(k64, want, k)
+    log(f"# path 5 (a) on {smi}: {nq} queries at ef_local {ef_def} (the "
+        f"default) in {out['search_s']:.3f} s = {nq / out['search_s']:.0f} "
+        f"QPS, recall@{k} {out['recall_default']:.4f}; at ef_local 64 "
+        f"{out['search_ef64_s']:.3f} s = {nq / out['search_ef64_s']:.0f} QPS,"
+        f" recall@{k} {out['recall_ef64']:.4f}; the single index (path 1) "
+        f"{single_qps:.0f} QPS; K1 launches in one search {launched} "
+        f"({n_shards} shards x {n_chunks} chunks); int8 layout built in "
+        f"{out['layout_s']:.2f} s")
+    check(np.isfinite(s_def).all() and (k_def >= 0).all(),
+          "(a): missing or non-finite results")
+    check(launched == n_shards * n_chunks,
+          f"(a): {launched} K1 launches, not one per shard per chunk")
+    check(out["recall_default"] >= 0.90,
+          f"(a): recall {out['recall_default']} < 0.90 at the default ef")
+    check(out["recall_ef64"] >= MIN_RECALL,
+          f"(a): recall {out['recall_ef64']} < {MIN_RECALL} at ef_local 64")
+    with tempfile.TemporaryDirectory(dir=build_dir) as tb:
+        with tracing.trace(tb):
+            with tracing.annotate("sharded_search"):
+                (_, k_tr), out["search_traced_s"] = timed(
+                    dev, lambda: sh.search(q, k))
+        names, kernels = trace_names(tb)
+    k1_events = sorted(x for x in kernels if "fused_beam" in x)
+    log(f"# path 5 (a) under tracing.trace on {smi}: "
+        f"{out['search_traced_s']:.3f} s; region 'sharded_search' in the "
+        f"trace: {'sharded_search' in names}; {len(kernels)} kernel names, "
+        f"K1 as {k1_events[:1]}")
+    check("sharded_search" in names, "the trace lacks the annotated region")
+    check(bool(k1_events), "the trace holds no K1 kernel event")
+    check(np.array_equal(k_tr, k_def), "the traced search differs")
+
+    # (b) maintenance: remove every tenth key, isolate, compact, persist
+    dead = keys[::10]
+    live = np.setdiff1d(keys, dead)
+    n_removed, out["remove_s"] = timed(dev, lambda: sh.remove(dead))
+    check(n_removed == len(dead) and len(sh) == len(live),
+          f"(b): removed {n_removed} of {len(dead)}")
+    _, got = sh.search(q, k, ef_local=64)
+    back = int(np.isin(got, dead).sum())
+    _, out["isolate_s"] = timed(dev, sh.isolate)
+    _, out["compact_s"] = timed(dev, sh.compact)
+    stats = sh.stats()
+    flat = FlatIndex(d, MetricKind.L2SQ, capacity=len(live), device=dev)
+    flat.add(vecs[live], live)
+    want_live = flat.search(q, k)[1]
+    del flat
+    (s_c, k_c), _ = timed(dev, lambda: sh.search(q, k, ef_local=64))
+    out["recall_compacted"] = recall_of(k_c, want_live, k)
+    log(f"# path 5 (b) on {smi}: removed {n_removed} in "
+        f"{out['remove_s']:.3f} s (removed keys returned {back}); isolate "
+        f"{out['isolate_s']:.3f} s, compact {out['compact_s']:.3f} s; stats "
+        f"count {stats['count']} (shards "
+        f"{[x['count'] for x in stats['shards']]}); recall@{k} at ef_local "
+        f"64 {out['recall_compacted']:.4f}")
+    check(back == 0, f"(b): {back} removed keys returned")
+    check(stats["count"] == len(live)
+          == sum(x["count"] for x in stats["shards"]),
+          f"(b): stats count {stats['count']} != live {len(live)}")
+    check(not np.isin(k_c, dead).any(), "(b): a removed key after compact")
+    check(out["recall_compacted"] >= MIN_RECALL,
+          f"(b): recall {out['recall_compacted']} < {MIN_RECALL}")
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = os.path.join(tmp, "sharded.vss")
+        _, out["save_s"] = timed(dev, lambda: sh.save(path))
+        size_mb = os.path.getsize(path) / 2**20
+        loaded, out["load_s"] = timed(
+            dev, lambda: ShardedHNSWIndex.load(path, mesh))
+    s_l, k_l = loaded.search(q, k, ef_local=64)
+    log(f"# path 5 (b) persistence on {smi}: save {out['save_s']:.2f} s "
+        f"({size_mb:.0f} MiB), load {out['load_s']:.2f} s; keys differing "
+        f"{int((k_l != k_c).sum())}, scores {int((s_l != s_c).sum())}")
+    check(np.array_equal(k_l, k_c) and np.array_equal(s_l, s_c),
+          "(b): the loaded index searches differently")
+    del sh, loaded
+    torch.cuda.empty_cache()
+
+    # (c) two processes on the card, two shards each
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        ranks, out["ranks_s"] = run_ranks(tmp, seed)
+        (s0, k0), (s1, k1) = [(np.load(os.path.join(tmp, f"rank{r}.npz"))[x]
+                               for x in ("scores", "keys")) for r in (0, 1)]
+        check(np.array_equal(k0, k1) and np.array_equal(s0, s1),
+              "(c): the two ranks returned different results")
+        two, out["load_2p_s"] = timed(dev, lambda: ShardedHNSWIndex.load(
+            os.path.join(tmp, "sharded.vss"), mesh))
+    s2, k2 = two.search(q, k)
+    out["recall_2p"] = recall_of(k0, want, k)
+    overlap = recall_of(k0, k_def, k)
+    log(f"# path 5 (c) on {smi}: 2 ranks on cuda:0 in {out['ranks_s']:.1f} "
+        f"s; build per rank "
+        f"{[round(r['build_s'], 2) for r in ranks]} s, search per rank "
+        f"{[round(r['search_s'], 3) for r in ranks]} s, K1 launches per "
+        f"rank {[r['k1_launches'] for r in ranks]}; recall@{k} "
+        f"{out['recall_2p']:.4f}; rank 0's file loaded here ({n_shards} "
+        f"shards, {out['load_2p_s']:.2f} s): keys differing "
+        f"{int((k2 != k0).sum())}, scores {int((s2 != s0).sum())}; key "
+        f"overlap with (a): {overlap:.4f}")
+    check(np.array_equal(k2, k0) and np.array_equal(s2, s0),
+          "(c): the loaded file searches differently from the ranks")
+    check(all(r["k1_launches"] == 2 * n_chunks for r in ranks),
+          "(c): a rank did not launch K1 once per shard per chunk")
+    return out, two
+
+
+def run_ranks(out_dir, seed, world=2, timeout_s=600):
+    """Start this script's --sharded-rank mode in ``world`` fresh
+    processes on the card, wait for them and return (their results,
+    seconds). Every process is stopped before this returns."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+           "--world", str(world), "--port", str(port), "--out", out_dir]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--sharded-rank", str(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=timeout_s)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0,
+              f"(c): rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, secs
+
+
+def sharded_rank(opts) -> int:
+    """One rank of path 5 (c): the run's 1M rows from --seed, this rank's
+    block of the 4 shards on cuda:0 (a gloo group over --world
+    processes), the bulk build, one search of the queries, and the
+    sharded file (written by rank 0). Results go to --out."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: a rank needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from duckdb_vss_tpu_torch import HNSWConfig
+    from duckdb_vss_tpu_torch.ops import fused_beam as fb
+    from duckdb_vss_tpu_torch.parallel.sharded import (ShardedHNSWIndex,
+                                                       make_mesh)
+
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://127.0.0.1:{opts.port}",
+                            world_size=opts.world, rank=opts.sharded_rank)
+    try:
+        vecs, _, q, _ = sift_like(opts.seed)
+        dev = torch.device("cuda")
+        mesh = make_mesh(4, device=dev)
+        sh = ShardedHNSWIndex(D, HNSWConfig(), mesh,
+                              capacity_per_shard=262_144)
+        _, build_s = timed(dev, lambda: sh.add(vecs, np.arange(len(vecs))))
+        fb.fused_beam_search.launches = 0
+        (scores, keys), search_s = timed(dev, lambda: sh.search(q, K))
+        launches = fb.fused_beam_search.launches
+        sh.save(os.path.join(opts.out, "sharded.vss"))
+    finally:
+        dist.destroy_process_group()
+    r = opts.sharded_rank
+    np.savez(os.path.join(opts.out, f"rank{r}.npz"), scores=scores,
+             keys=keys)
+    with open(os.path.join(opts.out, f"rank{r}.json"), "w") as f:
+        json.dump({"build_s": build_s, "search_s": search_s,
+                   "k1_launches": launches, "shards": list(mesh.shards),
+                   "cap": sh.cap}, f)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1234)
+    # path 5 (c) starts this script again, once per rank, with these
+    ap.add_argument("--sharded-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
+    if opts.sharded_rank is not None:
+        return sharded_rank(opts)
 
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1193,11 +1555,8 @@ def main(argv=None) -> int:
 
     # ---- 3. main path at full width -----------------------------------
     n, nq, d, k = N, NQ, D, K
-    rng = np.random.default_rng(opts.seed)
     t0 = time.perf_counter()
-    vecs, centers = make_data(rng, n, d)
-    q = (centers[rng.integers(0, len(centers), nq)]
-         + 0.25 * rng.normal(size=(nq, d)).astype(np.float32))
+    vecs, centers, q, rng = sift_like(opts.seed)
     keys = np.arange(n, dtype=np.int64)
     log(f"# data: {n} x {d} base, {nq} queries, seed {opts.seed}: "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1259,6 +1618,7 @@ def main(argv=None) -> int:
         f"ms = {TIMED_B / dev_s:.0f} QPS")
     profile_on_card(f"search_device through K1, {TIMED_B} queries",
                     lambda: idx.search_device(qd, k), smi)
+    cpu_baseline_phase(idx, q, want)
 
     # ---- 4. kernel check and timing -------------------------------------
     kw = dict(ef=64, expand=4, m0=config.m0, d=idx.store.d_pad,
@@ -1272,18 +1632,6 @@ def main(argv=None) -> int:
     args = path_beam_inputs(idx, q[:TIMED_B], 64)
     err = max([err, compare_beam("1M-l2sq-search-chunk", args, kw)]
               + list(errs.values()))
-
-    def time_beam(args, kw):
-        """K1's time, its bound from this run's counts and the log line's
-        tail that states both bounds."""
-        _, _, n_dist, n_exp = fb.fused_beam_search(*args, **kw)
-        ms = device_time(lambda: fb.fused_beam_search(*args, **kw),
-                         iters=10) * 1e3
-        bound, by, tiles = beam_bound_ms(args, kw, int(n_exp), int(n_dist))
-        return ms, bound, by, tiles, (
-            f"bound {bound:.4f} ms ({by}: {int(n_exp)} meta rows, "
-            f"{int(n_dist)} kept rows), the kernel at {bound / ms:.1%} of "
-            f"it; with whole tiles read {tiles:.4f} ms, {tiles / ms:.1%}")
 
     k_ms, bound_ms, bound_by, tiles_ms, tail = time_beam(args, kw)
     p_ms = device_time(lambda: fb.beam_search_plain(*args, **kw), iters=3) * 1e3
@@ -1438,6 +1786,33 @@ def main(argv=None) -> int:
     check(k1_launches_4 > 0, "path 4 never launched K1")
     check(fb.beam_search_plain.calls == 0,
           "path 4 ran K1's plain version")
+
+    # ---- 10. main path 5: the sharded index on the one card -------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    p5, two = path5(dev, vecs, q, want, smi, opts.seed, nq / search_s)
+    k1_launches_5 = fb.fused_beam_search.launches
+    k2_launches_5 = fg.gather_scores_kernel.launches
+    log(f"# path 5 on {smi}: {time.perf_counter() - t0:.1f} s; K1 launches "
+        f"{k1_launches_5}, plain version calls {fb.beam_search_plain.calls}"
+        f"; K2 launches {k2_launches_5}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; measured "
+        + json.dumps({name: round(v, 4) for name, v in p5.items()}))
+    check(k1_launches_5 > 0, "path 5 never launched K1")
+    check(fb.beam_search_plain.calls == 0, "path 5 ran K1's plain version")
+    # K1 at the sharded search's default shape, on shard 0's tables
+    ef32 = dict(kw, ef=32, max_steps=16)
+    err32 = compare_beam("shard0-l2sq-ef32", sharded_beam_inputs(
+        two, q[:1024], 32), ef32)
+    args = sharded_beam_inputs(two, q[:TIMED_B], 32)
+    k32_ms, bound32_ms, bound32_by, _, tail = time_beam(args, ef32)
+    p32_ms = device_time(lambda: fb.beam_search_plain(*args, **ef32),
+                         iters=3) * 1e3
+    log(f"# K1 on {smi} at B={TIMED_B} on shard 0's tables, ef 32, expand 4,"
+        f" 16 steps: {k32_ms:.3f} ms; plain {p32_ms:.3f} ms; {tail}")
+    del args, two
     log(f"# total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -1446,23 +1821,28 @@ def main(argv=None) -> int:
         "source": "duckdb_vss_tpu_torch/csrc/fused_beam.cu",
         "replaces": "duckdb_vss_tpu/ops/pallas_beam.py:133",
         "launches": (k1_launches + k1_launches_2 + k1_launches_3
-                     + k1_launches_4),
+                     + k1_launches_4 + k1_launches_5),
         "launches_by_path": [k1_launches, k1_launches_2, k1_launches_3,
-                             k1_launches_4],
-        "max_abs_err": err,
+                             k1_launches_4, k1_launches_5],
+        "max_abs_err": max(err, err32),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "bound_whole_tiles_ms": tiles_ms,
         "library_ms": None,
+        "sharded_ef32": {"ms": k32_ms, "plain_ms": p32_ms,
+                         "bound_ms": bound32_ms, "bound_by": bound32_by,
+                         "max_abs_err": err32},
     }, {
         "name": "gather_scores",
         "route": "cuda",
         "source": "duckdb_vss_tpu_torch/csrc/gather_scores.cu",
         "replaces": "duckdb_vss_tpu/ops/pallas_gather.py:40",
-        "launches": k2_launches + k2_launches_3 + k2_launches_4,
-        "launches_by_path": [0, k2_launches, k2_launches_3, k2_launches_4],
+        "launches": (k2_launches + k2_launches_3 + k2_launches_4
+                     + k2_launches_5),
+        "launches_by_path": [0, k2_launches, k2_launches_3, k2_launches_4,
+                             k2_launches_5],
         "max_abs_err": err2,
         "ms": k2_ms,
         "plain_ms": p2_ms,

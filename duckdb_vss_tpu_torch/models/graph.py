@@ -525,6 +525,23 @@ def beam_search(
 beam_search.steps = 0
 
 
+def upper_table(upper_node: torch.Tensor, upper_count: torch.Tensor,
+                vectors: torch.Tensor, vec_sq: torch.Tensor):
+    """(rows [u_lim, D] bf16, sq [u_lim] f32, nodes [u_lim] int32): the
+    vectors of upper-level nodes for mxu_descent, masked where the node
+    is -1 and compacted to a power-of-two bucket of upper_count (upper
+    slots are allocated sequentially, so rows past upper_count are never
+    live)."""
+    n_up = int(upper_count)
+    u_lim = min(upper_node.shape[0],
+                max(256, 1 << max(0, n_up - 1).bit_length()))
+    node = upper_node[:u_lim]
+    safe = node.clamp_min(0).long()
+    live = node >= 0
+    rows = torch.where(live[:, None], vectors[safe], 0.0)
+    return rows.to(torch.bfloat16), vec_sq[safe] * live, node
+
+
 def mxu_descent(
     upper_vecs: torch.Tensor,  # [u_lim, D] bf16 vectors of level>=1 nodes
     upper_vec_sq: torch.Tensor,  # [u_lim] f32

@@ -42,7 +42,8 @@ from duckdb_vss_tpu_torch.models.graph import (L_MAX, GraphState,
                                                make_graph,
                                                make_neighborhood_tables,
                                                search_graph,
-                                               update_neighborhood_rows)
+                                               update_neighborhood_rows,
+                                               upper_table)
 from duckdb_vss_tpu_torch.ops.distance import pair_scores
 from duckdb_vss_tpu_torch.ops.fused_beam import pack_meta
 from duckdb_vss_tpu_torch.utils.config import HNSWConfig, MetricKind
@@ -227,20 +228,11 @@ class HNSWIndex:
         return self._aug_cache
 
     def _upper_vectors(self):
-        """(rows [u_lim, D] bf16, sq [u_lim] f32, nodes [u_lim] int32): the
-        vectors of upper-level nodes for mxu_descent, compacted to a
-        power-of-two bucket of upper_count (upper slots are allocated
-        sequentially, so rows past upper_count are never live)."""
+        """graph.upper_table of this index, cached until a mutation."""
         if self._upper_cache is None:
-            cap_u = self.graph.upper_node.shape[0]
-            n_up = int(self.graph.upper_count)
-            u_lim = min(cap_u, max(256, 1 << max(0, n_up - 1).bit_length()))
-            node = self.graph.upper_node[:u_lim]
-            safe = node.clamp_min(0).long()
-            live = (node >= 0)
-            rows = torch.where(live[:, None], self.store._vectors[safe], 0.0)
-            self._upper_cache = (rows.to(torch.bfloat16),
-                                 self.store._vec_sq[safe] * live, node)
+            self._upper_cache = upper_table(
+                self.graph.upper_node, self.graph.upper_count,
+                self.store._vectors, self.store._vec_sq)
         return self._upper_cache
 
     def _neighborhood_tables(self):

@@ -16,6 +16,10 @@ settings, its tables (the column declarations, the columns as numpy as
 a checkpoint writes them, sql/engine.table_arrays, and the live flags)
 and its indexes (each through index_from_arrays); ``database_to_arrays``
 is its inverse.
+
+``sharded_from_arrays`` and ``sharded_to_arrays`` do the same for a
+ShardedHNSWIndex: the stacked [S, ...] store and graph, the key,
+free-list and next-slot state, and the placement.
 """
 
 from __future__ import annotations
@@ -100,6 +104,71 @@ def index_to_arrays(index: HNSWIndex) -> dict[str, np.ndarray]:
     }
     for f in GRAPH_FIELDS:
         out[f] = getattr(index.graph, f).cpu().numpy()
+    return out
+
+
+def sharded_from_arrays(arrays: dict, config: HNSWConfig, mesh,
+                        **index_settings):
+    """A port ShardedHNSWIndex on ``mesh`` holding ``arrays``: the stacked
+    store (``_vectors`` [S, cap, d_pad], a 2-byte dtype for a bf16
+    store, ``_vec_sq``, ``_valid``, ``_keys`` [S, cap]), every
+    ShardedGraph field [S, ...], ``_next_slot`` [S], ``_free_slots`` (S
+    lists), the placement's ``pl_assign`` and ``pl_load``, and ``dims``.
+    ``_vec_sq`` is taken as given, so a JAX graph searches on the same
+    numbers; without it the norms are summed by numpy from the rows as
+    stored (ShardedHNSWIndex.load). Under a process group each rank
+    keeps its own shards. ``index_settings`` go to the constructor
+    (seed, layout, ...)."""
+    from duckdb_vss_tpu_torch.parallel.sharded import (ShardedGraph,
+                                                       ShardedHNSWIndex)
+
+    vectors = np.asarray(arrays["_vectors"])
+    s, cap, d_pad = vectors.shape
+    assign = np.asarray(arrays["pl_assign"], np.int32)
+    idx = ShardedHNSWIndex(
+        int(arrays["dims"]), config, mesh, capacity_per_shard=cap,
+        placement_alpha=max(1, len(assign) // s),
+        scalar_kind="bf16" if vectors.dtype.itemsize == 2 else "f32",
+        **index_settings)
+    if idx.cap != cap or idx.d_pad != d_pad or idx.n_shards != s:
+        raise ValueError(f"store shape {vectors.shape} is not {idx.n_shards} "
+                         f"shards of a capacity bucket of width {idx.d_pad}")
+    idx._set_shard_arrays(vectors, np.asarray(arrays["_valid"]),
+                          {f: arrays[f] for f in ShardedGraph._fields},
+                          vec_sq=(np.asarray(arrays["_vec_sq"], np.float32)
+                                  if "_vec_sq" in arrays else None))
+    keys = np.asarray(arrays["_keys"], np.int64).copy()
+    idx._keys = keys
+    idx._key_to_slot = [{int(k): j for j, k in enumerate(keys[i].tolist())
+                         if k >= 0} for i in range(s)]
+    idx._free_slots = [[int(x) for x in f] for f in arrays["_free_slots"]]
+    idx._next_slot = np.asarray(arrays["_next_slot"], np.int64).copy()
+    idx.placement.assign = assign.copy()
+    idx.placement.load = np.asarray(arrays["pl_load"], np.int64).copy()
+    return idx
+
+
+def sharded_to_arrays(index) -> dict:
+    """The arrays sharded_from_arrays takes, as numpy over all S shards
+    (a bf16 store as uint16 bits); a collective under a process group."""
+    from duckdb_vss_tpu_torch.parallel.sharded import gather_shards
+
+    def fetch(t):
+        return host_array(gather_shards(index.mesh, t))
+
+    out = {
+        "dims": np.int64(index.dims),
+        "_vectors": fetch(index._vectors),
+        "_vec_sq": fetch(index._vec_sq),
+        "_valid": fetch(index._valid),
+        "_keys": index._keys.copy(),
+        "_next_slot": index._next_slot.copy(),
+        "_free_slots": [np.asarray(f, np.int64) for f in index._free_slots],
+        "pl_assign": index.placement.assign.copy(),
+        "pl_load": index.placement.load.copy(),
+    }
+    for f, t in zip(index.graph._fields, index.graph):
+        out[f] = fetch(t)
     return out
 
 
