@@ -14,7 +14,10 @@ the augmented table, cluster, join and the stashed flat scan on that
 index (phase 8 below). Path 4: the SQL layer, a disk-backed Database on
 the card driven through db.execute (phase 9 below). Path 5: the
 sharded index (parallel/sharded.py), four shards of the same rows on
-the one card, in one process and in two (phase 10 below). The
+the one card, in one process and in two (phase 10 below). Path 6: the
+entry module (entry.py): entry()'s search step, the same step over the
+index of path 1, and dryrun_multichip on 2 and 4 shards (phase 4c
+below). The
 configuration is the SIFT1M shape of ann-benchmarks'
 sift-128-euclidean: 1,000,000 x 128 f32 base vectors and 10,000
 queries, k=10, l2sq, with the HNSW defaults M=16, M0=32,
@@ -52,6 +55,24 @@ Phases (any failure raises and exits non-zero):
      copies, and what the bound counted before) is printed beside it.
      Then each phase's share of a block's resident clocks
      (tools/k1_phases.py, printed, not checked);
+ 4b. one graph per seed: the 1M rows bulk-built a second time on the
+     same seed; every graph array (neighbors0, the upper tables,
+     levels, entry node, max level, upper count) and n_distances must
+     equal the first build's, and K1 at B=8192 must return the same
+     beams and n_dist on both builds' tables (and agree with its plain
+     version on the second's); the second index is freed;
+ 4c. main path 6, the entry module, counts set to 0 before and read
+     after (path6): (a) entry() on the card, its step over its 512 x 64
+     index: shapes (8, 10), ascending scores, ids >= 0, recall@10 >=
+     0.95 against the exact scan; (b) the same step (the mxu descent,
+     the step-by-step beam over the bf16 traversal copy, the exact
+     rerank) over path 1's index, the queries in chunks of 8192:
+     recall@10 >= 0.95, its device time per 8192 queries beside the
+     fused search's; (c) dryrun_multichip(4) and (8) (2 and 4 shards),
+     whose asserts must hold, each launching K1; its plain version
+     never. Then K1 against its plain version on each shard of the dry
+     runs' index, built again, at the shapes their searches give it
+     (dryrun_kernel_checks);
   5. main path 2, counts set to 0 before and read after: the insert,
      then (a) a fused search of the 10,000 queries and the inserted
      rows, recall@10 >= 0.95 against the flat scan over all 1,016,384
@@ -116,8 +137,8 @@ Phases (any failure raises and exits non-zero):
      script again in two processes (--sharded-rank), a gloo group on the
      one card, two shards each, the same rows from --seed: both ranks
      return the same keys and scores, and rank 0's file loaded here
-     returns them too; the key overlap with (a) is printed, not checked
-     (the card's bulk build is not bit-reproducible). K1 launched, its
+     returns them too, and so do (a)'s one process and its 4 shards
+     (one graph per seed, whatever the ranks). K1 launched, its
      plain version never. Then K1 against its plain version at the
      sharded default (ef 32, expand 4, 16 steps) on shard 0's tables of
      that file, B=1024, and its time at B=8192 beside its plain
@@ -161,20 +182,6 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def make_data(rng, n, d, n_centers=4096, sigma=0.25, chunk=200_000):
-    """bench.py's SIFT-shaped clustered generator."""
-    import numpy as np
-
-    centers = rng.normal(size=(n_centers, d)).astype(np.float32)
-    out = np.empty((n, d), np.float32)
-    for off in range(0, n, chunk):
-        m = min(chunk, n - off)
-        asg = rng.integers(0, n_centers, m)
-        out[off:off + m] = centers[asg] + sigma * rng.normal(
-            size=(m, d)).astype(np.float32)
-    return out, centers
 
 
 def nvidia_smi_line() -> str:
@@ -1173,10 +1180,163 @@ def path4(dev, vecs, q, want, new, smi, tmp_root, k=K, n_single=200):
     return out
 
 
+def second_build(idx, vecs, keys, q, kw, smi):
+    """The same rows bulk-built a second time on the same seed: every
+    graph array and n_distances must equal the first build's, and K1 at
+    the search chunk's shape must return the same beams and n_dist on
+    both builds' tables (and agree with its plain version on the
+    second's). Returns K1's largest score difference from its plain
+    version."""
+    import torch
+
+    from duckdb_vss_tpu_torch.models.graph import GraphState
+    from duckdb_vss_tpu_torch.models.hnsw import HNSWIndex
+    from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search
+
+    again = HNSWIndex(idx.dims, idx.config, capacity=len(vecs),
+                      device=idx.device)
+    t0 = time.perf_counter()
+    again.add(vecs, keys)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    phases = {p: round(s, 3)
+              for p, s in again.build_stats["phase_s"].items()}
+    differ = [f for f in GraphState._fields
+              if not torch.equal(getattr(idx.graph, f),
+                                 getattr(again.graph, f))]
+    nd1, nd2 = (ix.build_stats["n_distances"] for ix in (idx, again))
+    log(f"# second build on {smi}, same rows and seed: {build_s:.2f} s, "
+        f"phases {phases}; arrays that differ from the first build: "
+        f"{differ or 'none'}; n_distances {nd2} (first {nd1})")
+    check(not differ, f"a second build on one seed differs in {differ}")
+    check(nd1 == nd2, f"a second build counted {nd2} distances, not {nd1}")
+    args2 = path_beam_inputs(again, q[:TIMED_B], 64)
+    first = fused_beam_search(*path_beam_inputs(idx, q[:TIMED_B], 64), **kw)
+    second = fused_beam_search(*args2, **kw)
+    log(f"# K1 at B={TIMED_B} on both builds' tables: n_dist "
+        f"{int(first[2])} and {int(second[2])}")
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          "K1 differs between the two builds' tables")
+    return compare_beam("1M-l2sq-search-chunk-second-build", args2, kw)
+
+
+def path6(idx, q, want, smi, search_ms, k=K):
+    """The entry module on the card. (a) entry(): its step over its own
+    512 x 64 index (recall@10 against the exact scan of the 512 rows);
+    (b) the same step over idx (its graph, store, bf16 traversal copy
+    and upper table) for the queries in chunks of TIMED_B (recall@10
+    against ``want``) and its device time for one chunk; (c)
+    dryrun_multichip(4) and (8), whose asserts are its checks. Returns
+    the measured values."""
+    import numpy as np
+    import torch
+
+    from duckdb_vss_tpu_torch import entry as port_entry
+    from duckdb_vss_tpu_torch.models import graph as port_graph
+    from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search
+    from duckdb_vss_tpu_torch.utils.timing import device_time
+
+    out = {}
+    # (a) entry() as a caller gets it, on the card
+    t0 = time.perf_counter()
+    fn, args = port_entry.entry()
+    scores, ids, _ = fn(*args)
+    s, i = scores.cpu().numpy(), ids.cpu().numpy()
+    out["a_s"] = time.perf_counter() - t0
+    valid = args[3].cpu().numpy()
+    rows = args[1].cpu().numpy().astype(np.float64)
+    qa = args[4].cpu().numpy().astype(np.float64)
+    d2 = ((qa[:, None, :] - rows[None, valid, :]) ** 2).sum(-1)
+    exact = np.nonzero(valid)[0][np.argsort(d2, axis=1, kind="stable")[:, :k]]
+    out["a_recall"] = recall_of(i, exact, k)
+    log(f"# path 6 (a) entry() on {smi}: scores {s.shape}, ids {i.shape}, "
+        f"recall@{k} {out['a_recall']:.4f} against the exact scan of "
+        f"{int(valid.sum())} rows ({out['a_s']:.2f} s with the build)")
+    check(s.shape == i.shape == (8, k), "(6a): result shapes")
+    check(bool((s[:, 1:] >= s[:, :-1]).all()), "(6a): scores do not ascend")
+    check(bool((i >= 0).all()), "(6a): missing ids")
+    check(out["a_recall"] >= MIN_RECALL,
+          f"(6a): recall {out['a_recall']} < {MIN_RECALL}")
+    # (b) the same step at full width, on the 1M index of path 1
+    st = idx.store
+    trav = idx._traversal_vectors()
+    uv, uvsq, unode = idx._upper_vectors()
+
+    def step(qd):
+        return fn(idx.graph, st._vectors, st._vec_sq, st._valid, qd, trav,
+                  uv, uvsq, unode)
+
+    steps0 = port_graph.beam_search.steps
+    t0 = time.perf_counter()
+    got = [step(st.prepare_queries(q[c:c + TIMED_B]))[1].cpu().numpy()
+           for c in range(0, len(q), TIMED_B)]
+    out["b_s"] = time.perf_counter() - t0
+    slots = np.concatenate(got)
+    check(trav.dtype == torch.bfloat16 and (slots >= 0).all(),
+          "(6b): bf16 traversal copy, every id found")
+    out["b_recall"] = recall_of(st._keys[slots], want, k)
+    out["b_steps"] = port_graph.beam_search.steps - steps0
+    qd = st.prepare_queries(q[:TIMED_B])
+    out["b_ms"] = device_time(lambda: step(qd), iters=3) * 1e3
+    log(f"# path 6 (b) the entry's step on path 1's index on {smi}: "
+        f"{len(q)} queries in {out['b_s']:.3f} s, recall@{k} "
+        f"{out['b_recall']:.4f} ({out['b_steps']} beam steps); "
+        f"{out['b_ms']:.2f} ms per {TIMED_B} queries on the card, against "
+        f"{search_ms:.2f} ms for path 1's fused search")
+    check(out["b_recall"] >= MIN_RECALL,
+          f"(6b): recall {out['b_recall']} < {MIN_RECALL}")
+    # (c) the sharded lifecycle on 2 and 4 shards of the card
+    for n in (4, 8):
+        k1_before = fused_beam_search.launches
+        t0 = time.perf_counter()
+        port_entry.dryrun_multichip(n)
+        out[f"c{n}_s"] = time.perf_counter() - t0
+        out[f"c{n}_k1"] = fused_beam_search.launches - k1_before
+    return out
+
+
+def dryrun_kernel_checks():
+    """K1 against its plain version at the shapes dryrun_multichip(4)
+    and (8) give it: the dry run's index built again as sharded_lifecycle
+    builds it, on each of its shards, after the first add (capacity
+    1024) and after remove, compact, reserve(2048) and the second add;
+    the queries of the search that follows each (4 and 2 rows, padded
+    to 8 rows as the search pads them), at the search's ef_local, its
+    expand of 4 and search_graph's step count for that ef. Returns the
+    largest score difference."""
+    import numpy as np
+
+    from duckdb_vss_tpu_torch import entry as port_entry
+    from duckdb_vss_tpu_torch.parallel.sharded import (ShardedHNSWIndex,
+                                                       ef_local_policy)
+
+    err = 0.0
+    for n in (4, 8):
+        grown, vecs, keys, extra = port_entry.sharded_lifecycle(n)
+        fresh = ShardedHNSWIndex(grown.dims, grown.config, grown.mesh,
+                                 capacity_per_shard=1024, build_batch=32)
+        fresh.add(vecs, keys)
+        for what, sh, qs, k in (("fresh", fresh, vecs[:4], 3),
+                                ("grown", grown, extra[:2], 1)):
+            sh._tables()
+            ef = ef_local_policy(32, k, sh.n_shards)
+            kw = dict(ef=ef, expand=4, m0=sh.config.m0, d=sh.d_pad,
+                      max_steps=max(8, ef // 2), metric=sh.config.metric)
+            padded = np.zeros((8, sh.dims), np.float32)
+            padded[:len(qs)] = qs
+            for j in range(len(sh.mesh.shards)):
+                err = max(err, compare_beam(
+                    f"dryrun{n}-{what}-cap{sh.cap}-shard{j}",
+                    sharded_beam_inputs(sh, padded, ef, shard=j), kw))
+    return err
+
+
 def sift_like(seed, n=N, nq=NQ, d=D):
     """The run's data from ``seed``: base rows, their centres, queries,
     and the generator (for rows drawn later)."""
     import numpy as np
+
+    from duckdb_vss_tpu_torch.tools.build_peak import make_data
 
     rng = np.random.default_rng(seed)
     vecs, centers = make_data(rng, n, d)
@@ -1393,7 +1553,6 @@ def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
             os.path.join(tmp, "sharded.vss"), mesh))
     s2, k2 = two.search(q, k)
     out["recall_2p"] = recall_of(k0, want, k)
-    overlap = recall_of(k0, k_def, k)
     log(f"# path 5 (c) on {smi}: 2 ranks on cuda:0 in {out['ranks_s']:.1f} "
         f"s; build per rank "
         f"{[round(r['build_s'], 2) for r in ranks]} s, search per rank "
@@ -1401,10 +1560,13 @@ def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
         f"rank {[r['k1_launches'] for r in ranks]}; recall@{k} "
         f"{out['recall_2p']:.4f}; rank 0's file loaded here ({n_shards} "
         f"shards, {out['load_2p_s']:.2f} s): keys differing "
-        f"{int((k2 != k0).sum())}, scores {int((s2 != s0).sum())}; key "
-        f"overlap with (a): {overlap:.4f}")
+        f"{int((k2 != k0).sum())}, scores {int((s2 != s0).sum())}; against "
+        f"(a) keys differing {int((k0 != k_def).sum())}, scores "
+        f"{int((s0 != s_def).sum())}")
     check(np.array_equal(k2, k0) and np.array_equal(s2, s0),
           "(c): the loaded file searches differently from the ranks")
+    check(np.array_equal(k0, k_def) and np.array_equal(s0, s_def),
+          "(c): two ranks built and searched differently from one process")
     check(all(r["k1_launches"] == 2 * n_chunks for r in ranks),
           "(c): a rank did not launch K1 once per shard per chunk")
     return out, two
@@ -1647,6 +1809,27 @@ def main(argv=None) -> int:
         f"{k128_ms:.3f} ms; {tail}")
     del args
 
+    # ---- 4b. one graph per seed: the same rows built a second time -------
+    err = max(err, second_build(idx, vecs, keys, q, kw, smi))
+    torch.cuda.empty_cache()
+
+    # ---- 4c. main path 6: the entry module, on path 1's index -----------
+    zero_counts()
+    t0 = time.perf_counter()
+    p6 = path6(idx, q, want, smi, dev_s * 1e3)
+    k1_launches_6 = fb.fused_beam_search.launches
+    k2_launches_6 = fg.gather_scores_kernel.launches
+    p6["s"] = time.perf_counter() - t0
+    log(f"# path 6 on {smi}: {p6['s']:.1f} s; K1 launches {k1_launches_6} "
+        f"(dryrun_multichip(4): {p6['c4_k1']}, (8): {p6['c8_k1']}), plain "
+        f"version calls {fb.beam_search_plain.calls}; K2 launches "
+        f"{k2_launches_6}; measured "
+        + json.dumps({name: round(v, 4) for name, v in p6.items()}))
+    check(p6["c4_k1"] > 0 and p6["c8_k1"] > 0,
+          "a dry run never launched K1")
+    check(fb.beam_search_plain.calls == 0, "path 6 ran K1's plain version")
+    err = max(err, dryrun_kernel_checks())
+
     # ---- 5. main path 2: incremental insert, then both searches ---------
     new = (centers[rng.integers(0, len(centers), N_INSERT)]
            + 0.25 * rng.normal(size=(N_INSERT, d)).astype(np.float32))
@@ -1821,9 +2004,9 @@ def main(argv=None) -> int:
         "source": "duckdb_vss_tpu_torch/csrc/fused_beam.cu",
         "replaces": "duckdb_vss_tpu/ops/pallas_beam.py:133",
         "launches": (k1_launches + k1_launches_2 + k1_launches_3
-                     + k1_launches_4 + k1_launches_5),
+                     + k1_launches_4 + k1_launches_5 + k1_launches_6),
         "launches_by_path": [k1_launches, k1_launches_2, k1_launches_3,
-                             k1_launches_4, k1_launches_5],
+                             k1_launches_4, k1_launches_5, k1_launches_6],
         "max_abs_err": max(err, err32),
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1840,9 +2023,9 @@ def main(argv=None) -> int:
         "source": "duckdb_vss_tpu_torch/csrc/gather_scores.cu",
         "replaces": "duckdb_vss_tpu/ops/pallas_gather.py:40",
         "launches": (k2_launches + k2_launches_3 + k2_launches_4
-                     + k2_launches_5),
+                     + k2_launches_5 + k2_launches_6),
         "launches_by_path": [0, k2_launches, k2_launches_3, k2_launches_4,
-                             k2_launches_5],
+                             k2_launches_5, k2_launches_6],
         "max_abs_err": err2,
         "ms": k2_ms,
         "plain_ms": p2_ms,

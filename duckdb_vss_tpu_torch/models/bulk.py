@@ -221,36 +221,63 @@ def _reverse_candidates_chunked(knn_ids, knn_sc, rev_r, n_cols):
 # ---------------------------------------------------------------------------
 
 
+def _kmeans_rows(vectors, vec_sq, slots, normalize):
+    """The f32 rows k-means clusters (unit length for cosine and ip)."""
+    safe = slots.clamp_min(0).long()
+    x = vectors[safe].float()
+    if normalize:
+        x = x * torch.rsqrt(torch.clamp_min(vec_sq[safe], 1e-30))[:, None]
+    return x
+
+
+def _kmeans_assign(vectors, vec_sq, slot_chunks, centers, normalize):
+    """Each row's nearest center in l2 (bf16 products), one slot chunk
+    at a time: asg [n_chunks*AB] int32."""
+    c_bf = centers.to(torch.bfloat16)
+    c_sq = (centers * centers).sum(1)
+    asgs = []
+    for sl in slot_chunks:
+        x = _kmeans_rows(vectors, vec_sq, sl, normalize)
+        d2 = c_sq[None, :] - 2.0 * dot_scores(x.to(torch.bfloat16), c_bf)
+        asgs.append(torch.argmin(d2, dim=1).to(torch.int32))
+    return torch.cat(asgs)
+
+
 def _kmeans_pass(vectors, vec_sq, slot_chunks, centers, normalize):
     """One Lloyd iteration over slot chunks: assign + accumulate.
 
     slot_chunks [n_chunks, AB] (-1 pad). Returns (new_centers, asg
     [n_chunks*AB] int32, counts [C]). Clustering always runs in l2 space
-    (cosine and ip rows are normalized first): a routing heuristic."""
-    c, d = centers.shape
-    c_bf = centers.to(torch.bfloat16)
-    c_sq = (centers * centers).sum(1)
-    sums = torch.zeros((c, d), dtype=torch.float32, device=centers.device)
-    counts = torch.zeros((c,), dtype=torch.int32, device=centers.device)
-    asgs = []
-    for sl in slot_chunks:
-        safe = sl.clamp_min(0).long()
-        x = vectors[safe].float()
-        if normalize:
-            x = x * torch.rsqrt(torch.clamp_min(vec_sq[safe], 1e-30))[:, None]
-        d2 = c_sq[None, :] - 2.0 * dot_scores(x.to(torch.bfloat16), c_bf)
-        asg = torch.argmin(d2, dim=1).to(torch.int32)
-        live = sl >= 0
-        # index_add_ on the GPU sums in no fixed order: the centers may
-        # differ from the JAX package's in the last bits
-        sums.index_add_(0, asg[live].long(), x[live])
-        counts.index_add_(0, asg[live].long(),
-                          torch.ones_like(asg[live]))
-        asgs.append(asg)
+    (cosine and ip rows are normalized first): a routing heuristic.
+
+    Each center's sum adds its rows one after another from zero, in
+    slot-chunk order: the order of the JAX package's scatter-add on the
+    CPU, and one order on every device (a scatter-add on the GPU adds
+    with float atomics, in whatever order they land, so two builds on
+    one seed would differ). The sums run over whole centers at a time,
+    at most AB rows of them (a larger center alone), so no more rows
+    are held at once than in the assignment."""
+    c, ab = centers.shape[0], slot_chunks.shape[1]
+    asg = _kmeans_assign(vectors, vec_sq, slot_chunks, centers, normalize)
+    slots = slot_chunks.reshape(-1)
+    live = slots >= 0
+    counts = torch.bincount(asg[live], minlength=c).to(torch.int32)
+    # a stable sort by center puts each center's rows together, in order
+    by_center = torch.sort(torch.where(live, asg, c), stable=True).indices
+    ends = np.cumsum(counts.cpu().numpy())
+    sums = torch.empty_like(centers)
+    lo = start = 0
+    while lo < c:
+        hi = max(lo + 1, int(np.searchsorted(ends, start + ab, "right")))
+        rows = slots[by_center[start:int(ends[hi - 1])]]
+        sums[lo:hi] = torch.segment_reduce(
+            _kmeans_rows(vectors, vec_sq, rows, normalize), "sum",
+            lengths=counts[lo:hi], axis=0)
+        lo, start = hi, int(ends[hi - 1])
     new_centers = torch.where((counts > 0)[:, None],
                               sums / torch.clamp_min(counts, 1)[:, None],
                               centers)
-    return new_centers, torch.cat(asgs), counts
+    return new_centers, asg, counts
 
 
 def _refine_chunk(vectors_bf, vec_sq, knn_ids, sl, metric):
@@ -407,8 +434,7 @@ def _ivf_knn_sweep(vectors, vectors_bf, vec_sq, slots, knn_k, metric):
             vectors, vec_sq, slot_chunks_t, centers, normalize)
     # a final assignment-only pass, so the probe lists are built against
     # the same centers _ivf_candidates ranks with
-    _, asg, _counts = _kmeans_pass(vectors, vec_sq, slot_chunks_t, centers,
-                                   normalize)
+    asg = _kmeans_assign(vectors, vec_sq, slot_chunks_t, centers, normalize)
     asg_np = asg.cpu().numpy()[:n]
     centers_np = centers.cpu().numpy().astype(np.float32)
     q_chunks, cand = _ivf_candidates(asg_np, np.asarray(slots, np.int32),
