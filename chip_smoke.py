@@ -14,10 +14,11 @@ the augmented table, cluster, join and the stashed flat scan on that
 index (phase 8 below). Path 4: the SQL layer, a disk-backed Database on
 the card driven through db.execute (phase 9 below). Path 5: the
 sharded index (parallel/sharded.py), four shards of the same rows on
-the one card, in one process and in two (phase 10 below). Path 6: the
-entry module (entry.py): entry()'s search step, the same step over the
-index of path 1, and dryrun_multichip on 2 and 4 shards (phase 4c
-below). The
+the one card, in one process, on a grid of card slots, and in two
+processes (phase 10 below). Path 6: the entry module (entry.py):
+entry()'s search step, the same step over the index of path 1, and
+dryrun_multichip on 2 and 4 shards and on grids of 4 and 8 card slots
+(phase 4c below). The
 configuration is the SIFT1M shape of ann-benchmarks'
 sift-128-euclidean: 1,000,000 x 128 f32 base vectors and 10,000
 queries, k=10, l2sq, with the HNSW defaults M=16, M0=32,
@@ -69,9 +70,11 @@ Phases (any failure raises and exits non-zero):
      rerank) over path 1's index, the queries in chunks of 8192:
      recall@10 >= 0.95, its device time per 8192 queries beside the
      fused search's; (c) dryrun_multichip(4) and (8) (2 and 4 shards),
-     whose asserts must hold, each launching K1; its plain version
-     never. Then K1 against its plain version on each shard of the dry
-     runs' index, built again, at the shapes their searches give it
+     whose asserts must hold, each launching K1, then the same on grids
+     of card slots, (q 2, shard 2) and (q 2, shard 4), K1 launched once
+     per slot per search; its plain version never. Then K1 against its
+     plain version on each shard of every replica row of the dry runs'
+     indexes, built again, at the shapes their searches give it
      (dryrun_kernel_checks);
   5. main path 2, counts set to 0 before and read after: the insert,
      then (a) a fused search of the 10,000 queries and the inserted
@@ -133,7 +136,15 @@ Phases (any failure raises and exits non-zero):
      one search under tracing.trace + annotate (the trace must hold the
      region and a K1 kernel event); (b) remove every tenth key (none
      returned), isolate, compact, stats (count = live rows), recall >=
-     0.95 at ef_local=64, save and load (keys and scores equal); (c) this
+     0.95 at ef_local=64, save and load (keys and scores equal); (d)
+     the same rows in a grid of one card slot a shard
+     (make_mesh(4, devices=...), four slots of cuda:0 on one card, each
+     searching on its own stream): keys and scores equal to (a)'s bit for
+     bit at ef_local 32 and 64, K1 once per shard per chunk, the file
+     after (b)'s steps byte-equal to (a)'s; its ms per 8,192-query
+     search beside (a)'s, the host syncs of one search, under
+     torch.profiler how much the shards' kernels overlap, and the
+     device memory of one search beside (a)'s; (c) this
      script again in two processes (--sharded-rank), a gloo group on the
      one card, two shards each, the same rows from --seed: both ranks
      return the same keys and scores, and rank 0's file loaded here
@@ -146,13 +157,15 @@ Phases (any failure raises and exits non-zero):
 
 The line before the last is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Run from the repository
-root: python3 chip_smoke.py
+root: python3 chip_smoke.py. On a machine with several cards, path 5
+(d) and path 6 (c) lay their slots over the cards (card_slots).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -1285,23 +1298,30 @@ def path6(idx, q, want, smi, search_ms, k=K):
         f"{search_ms:.2f} ms for path 1's fused search")
     check(out["b_recall"] >= MIN_RECALL,
           f"(6b): recall {out['b_recall']} < {MIN_RECALL}")
-    # (c) the sharded lifecycle on 2 and 4 shards of the card
+    # (c) the sharded lifecycle on 2 and 4 shards of the card, then on
+    # grids of card slots: (q 2, shard 2) and (q 2, shard 4)
     for n in (4, 8):
-        k1_before = fused_beam_search.launches
-        t0 = time.perf_counter()
-        port_entry.dryrun_multichip(n)
-        out[f"c{n}_s"] = time.perf_counter() - t0
-        out[f"c{n}_k1"] = fused_beam_search.launches - k1_before
+        for label, devices in (("", None), ("grid", card_slots(n))):
+            k1_before = fused_beam_search.launches
+            t0 = time.perf_counter()
+            port_entry.dryrun_multichip(n, devices=devices)
+            out[f"c{n}{label}_s"] = time.perf_counter() - t0
+            out[f"c{n}{label}_k1"] = fused_beam_search.launches - k1_before
+        log(f"# path 6 (c) dryrun_multichip({n}) on the slots "
+            f"{card_slots(n)}: K1 launches {out[f'c{n}grid_k1']} (one per "
+            f"slot per search), {out[f'c{n}grid_s']:.2f} s")
     return out
 
 
 def dryrun_kernel_checks():
     """K1 against its plain version at the shapes dryrun_multichip(4)
-    and (8) give it: the dry run's index built again as sharded_lifecycle
-    builds it, on each of its shards, after the first add (capacity
-    1024) and after remove, compact, reserve(2048) and the second add;
-    the queries of the search that follows each (4 and 2 rows, padded
-    to 8 rows as the search pads them), at the search's ef_local, its
+    and (8) give it, on the one-device mesh and on the grid of card
+    slots: the dry run's index built again as sharded_lifecycle builds
+    it, on each of its shards in every replica row, after the first add
+    (capacity 1024) and after remove, compact, reserve(2048) and the
+    second add; the queries of the search that follows each (4 and 2
+    rows, padded to 8 rows as the search pads them; on a grid of two
+    replica rows, row 0's block of 4), at the search's ef_local, its
     expand of 4 and search_graph's step count for that ef. Returns the
     largest score difference."""
     import numpy as np
@@ -1312,22 +1332,27 @@ def dryrun_kernel_checks():
 
     err = 0.0
     for n in (4, 8):
-        grown, vecs, keys, extra = port_entry.sharded_lifecycle(n)
-        fresh = ShardedHNSWIndex(grown.dims, grown.config, grown.mesh,
-                                 capacity_per_shard=1024, build_batch=32)
-        fresh.add(vecs, keys)
-        for what, sh, qs, k in (("fresh", fresh, vecs[:4], 3),
-                                ("grown", grown, extra[:2], 1)):
-            sh._tables()
-            ef = ef_local_policy(32, k, sh.n_shards)
-            kw = dict(ef=ef, expand=4, m0=sh.config.m0, d=sh.d_pad,
-                      max_steps=max(8, ef // 2), metric=sh.config.metric)
-            padded = np.zeros((8, sh.dims), np.float32)
-            padded[:len(qs)] = qs
-            for j in range(len(sh.mesh.shards)):
-                err = max(err, compare_beam(
-                    f"dryrun{n}-{what}-cap{sh.cap}-shard{j}",
-                    sharded_beam_inputs(sh, padded, ef, shard=j), kw))
+        for label, devices in (("", None), ("-grid", card_slots(n))):
+            grown, vecs, keys, extra = port_entry.sharded_lifecycle(
+                n, devices=devices)
+            fresh = ShardedHNSWIndex(grown.dims, grown.config, grown.mesh,
+                                     capacity_per_shard=1024, build_batch=32)
+            fresh.add(vecs, keys)
+            rows = len(grown.mesh.grid)
+            for what, sh, qs, k in (("fresh", fresh, vecs[:4], 3),
+                                    ("grown", grown, extra[:2], 1)):
+                ef = ef_local_policy(32, k, sh.n_shards)
+                kw = dict(ef=ef, expand=4, m0=sh.config.m0, d=sh.d_pad,
+                          max_steps=max(8, ef // 2), metric=sh.config.metric)
+                padded = np.zeros((8 // rows, sh.dims), np.float32)
+                padded[:len(qs)] = qs[:8 // rows]
+                for r in range(rows):
+                    for j in range(len(sh.mesh.shards)):
+                        err = max(err, compare_beam(
+                            f"dryrun{n}{label}-{what}-cap{sh.cap}-row{r}-"
+                            f"shard{j}",
+                            sharded_beam_inputs(sh, padded, ef, shard=j,
+                                                row=r), kw))
     return err
 
 
@@ -1383,25 +1408,57 @@ def cpu_baseline_phase(idx, q, want, k=K, n_q=1000, ef=64):
     return out
 
 
-def sharded_beam_inputs(sh, queries_np, ef, shard=0):
+def sharded_beam_inputs(sh, queries_np, ef, shard=0, row=0):
     """K1's inputs exactly as the sharded search builds them for one of
-    its shards (the search_graph default of 4 descent seeds)."""
+    its shards in one replica row, on that shard's device (the
+    search_graph default of 4 descent seeds)."""
     import torch
 
     from duckdb_vss_tpu_torch.models.graph import mxu_descent, seed_beam
     from duckdb_vss_tpu_torch.utils.padding import pad_2d_np
 
+    use_nbr = sh._tables()
+    check(use_nbr, "the sharded index runs without the int8 layout")
+    st, vectors, vec_sq, _, kw = sh._shard_args(row, shard, use_nbr)
     qd = torch.from_numpy(pad_2d_np(queries_np, len(queries_np),
-                                    sh.d_pad)).to(sh.device)
+                                    sh.d_pad)).to(vectors.device)
     q_sq = (qd * qd).sum(-1)
-    uv, uvsq, unode = sh._upper_cache[shard]
-    nv, _scale, _sq, meta = sh._nbr_cache[shard]
     metric = sh.config.metric
-    seeds, _ = mxu_descent(uv, uvsq, unode, sh.graph.entry_node[shard], qd,
-                           metric, 4)
-    seed_s, seed_i = seed_beam(sh._vectors[shard], sh._vec_sq[shard], seeds,
-                               qd, q_sq, metric, ef)
-    return (qd, q_sq, seed_s, seed_i, meta, nv)
+    seeds, _ = mxu_descent(kw["upper_vecs"], kw["upper_vec_sq"],
+                           kw["upper_nodes"], st.entry_node, qd, metric, 4)
+    seed_s, seed_i = seed_beam(vectors, vec_sq, seeds, qd, q_sq, metric, ef)
+    return (qd, q_sq, seed_s, seed_i, kw["nbr_meta"], kw["nbr_vecs"])
+
+
+def card_slots(n):
+    """n slot names over the cards of this machine, in turn: on one card,
+    n slots of cuda:0."""
+    import torch
+
+    return [f"cuda:{i % torch.cuda.device_count()}" for i in range(n)]
+
+
+def search_memory(fn, devices):
+    """Run fn once and return ({device: [GiB allocated before it, GiB
+    allocated at its peak, GiB reserved at its peak]}, the current
+    device's peak allocation before the call in GiB). The peak counters
+    are reset for the call, so a caller that reports the peak of a
+    longer span takes the larger of that and the later peak."""
+    import torch
+
+    devs = sorted({str(torch.device(d)) for d in devices})
+    prior = torch.cuda.max_memory_allocated() / 2**30
+    before = {}
+    for d in devs:
+        torch.cuda.synchronize(d)
+        before[d] = torch.cuda.memory_allocated(d) / 2**30
+        torch.cuda.reset_peak_memory_stats(d)
+    fn()
+    for d in devs:
+        torch.cuda.synchronize(d)
+    return {d: [before[d], torch.cuda.max_memory_allocated(d) / 2**30,
+                torch.cuda.max_memory_reserved(d) / 2**30]
+            for d in devs}, prior
 
 
 def trace_names(log_dir):
@@ -1418,15 +1475,151 @@ def trace_names(log_dir):
     return names, kernels
 
 
+def host_syncs(fn):
+    """Run fn under torch.cuda's sync debug mode and return where a
+    synchronizing CUDA call was made: {"file:line": count}, a line inside
+    torch followed by the innermost line of this checkout that reached
+    it."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    seen = collections.Counter()
+
+    def where(filename, lineno):
+        return f"{filename.split('site-packages/')[-1]}:{lineno}" \
+            if not filename.startswith(here) \
+            else f"{os.path.relpath(filename, here)}:{lineno}"
+
+    inside = [False]  # count only what fn itself makes
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not inside[0] or "synchroniz" not in str(message):
+            return
+        at = where(filename, lineno)
+        if not filename.startswith(here):
+            mine = [f for f in traceback.extract_stack()
+                    if f.filename.startswith(here)]
+            if mine:
+                at += " via " + where(mine[-1].filename, mine[-1].lineno)
+        seen[at] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside[0] = True
+            fn()
+            inside[0] = False
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(seen)
+
+
+def shard_overlap(fn, tmp_dir):
+    """Run fn once under torch.profiler and read its trace: the streams
+    (of any card) that ran a K1 kernel are the shards' streams. Returns
+    the wall span of their kernels, the sum of each stream's own span
+    (equal to the wall span when the shards run one after another), the
+    same two for K1's kernels alone, each shard stream's span
+    (``shard_ms``), the kernels' busy time on those streams, in all and
+    for each, and on the others (the merge), the copies by kind, and for
+    each shard stream the host's window of the launches of its kernels
+    (``host_issue_ms``) beside the window in which they ran
+    (``device_run_ms``), both from the first shard kernel's launch, in
+    ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(tmp_dir, "overlap.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return overlap_of(json.load(f)["traceEvents"])
+
+
+def overlap_of(events):
+    """shard_overlap's figures from a trace's events."""
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    for e in kern:
+        args = e.get("args", {})
+        e["stream"] = (args.get("device"), args.get("stream"))
+    k1_streams = {e["stream"] for e in kern
+                  if "fused_beam" in e.get("name", "")}
+
+    def spans(evs):
+        by = {}
+        for e in evs:
+            by.setdefault(e["stream"], []).append(e)
+        if not by:
+            return 0.0, []
+        part = [(max(e["ts"] + e["dur"] for e in v)
+                 - min(e["ts"] for e in v)) / 1e3 for _, v in sorted(
+                     by.items(), key=lambda kv: str(kv[0]))]
+        wall = (max(e["ts"] + e["dur"] for e in evs)
+                - min(e["ts"] for e in evs))
+        return wall / 1e3, part
+
+    shard_k = [e for e in kern if e["stream"] in k1_streams]
+    out = {"streams": len(k1_streams)}
+    out["wall_ms"], out["shard_ms"] = spans(shard_k)
+    out["sum_of_shards_ms"] = sum(out["shard_ms"])
+    out["k1_wall_ms"], k1_part = spans(
+        [e for e in shard_k if "fused_beam" in e.get("name", "")])
+    out["k1_sum_ms"] = sum(k1_part)
+    out["shard_busy_ms"] = sum(e["dur"] for e in shard_k) / 1e3
+    # the host's launch call of a kernel carries its correlation id
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    by = {}
+    for e in shard_k:
+        by.setdefault(e["stream"], []).append(e)
+    streams = sorted(by, key=str)
+    issued = {st: [launch_ts[e["args"]["correlation"]] for e in by[st]
+                   if e.get("args", {}).get("correlation") in launch_ts]
+              for st in streams}
+    t0 = min((min(v) for v in issued.values() if v), default=0.0)
+    out["busy_by_shard_ms"] = [sum(e["dur"] for e in by[st]) / 1e3
+                               for st in streams]
+    out["host_issue_ms"] = [[(min(issued[st]) - t0) / 1e3,
+                             (max(issued[st]) - t0) / 1e3]
+                            if issued[st] else None for st in streams]
+    out["device_run_ms"] = [[(min(e["ts"] for e in by[st]) - t0) / 1e3,
+                             (max(e["ts"] + e["dur"] for e in by[st])
+                              - t0) / 1e3] for st in streams]
+    out["merge_busy_ms"] = sum(e["dur"] for e in kern
+                               if e["stream"] not in k1_streams) / 1e3
+    copies = {}
+    for e in events:
+        if e.get("cat") == "gpu_memcpy":
+            name = e.get("name", "copy")
+            n, ms = copies.get(name, (0, 0.0))
+            copies[name] = (n + 1, ms + e["dur"] / 1e3)
+    out["copies"] = {name: [n, round(ms, 4)] for name, (n, ms) in
+                     copies.items()}
+    return out
+
+
 def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
           cap=262_144):
     """Main path 5, the sharded index on the one card: (a) one process,
     4 shards of 1M x 128 bulk-built, searched at the default ef_local and
     at ef_local=64 (K1 once per shard per chunk), under tracing.trace;
-    (b) remove, isolate, compact, stats, save and load; (c) two processes
-    on the card in a gloo group, 2 shards each, and rank 0's file loaded
-    here. Raises on any failed check; returns what it measured and the
-    loaded index of (c)."""
+    (b) remove, isolate, compact, stats, save and load; (d) the same
+    rows in a grid of one card slot a shard (path5_grid), equal to (a)
+    bit for bit; (c) two processes on the card in a gloo group, 2 shards
+    each, and rank 0's file loaded here. Raises on any failed check;
+    returns what it measured and the loaded index of (c)."""
     import numpy as np
     import torch
 
@@ -1437,6 +1630,7 @@ def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
                                                        ef_local_policy,
                                                        make_mesh)
     from duckdb_vss_tpu_torch.utils import tracing
+    from duckdb_vss_tpu_torch.utils.timing import device_time
 
     n, d = vecs.shape
     nq, out = len(q), {}
@@ -1456,14 +1650,13 @@ def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
         f"{sh.counts.tolist()}, capacity per shard {sh.cap}")
     check(sh.cap == cap, f"the capacity grew to {sh.cap}: K1 would leave")
     _, out["layout_s"] = timed(dev, lambda: sh.search(q[:64], k))
-    check(sh._nbr_cache is not None, "the sharded search runs without the "
-          "int8 layout")
+    check(sh._tables(), "the sharded search runs without the int8 layout")
     ef_def = ef_local_policy(sh.config.ef_search, k, n_shards)
     before = fb.fused_beam_search.launches
     (s_def, k_def), out["search_s"] = timed(dev, lambda: sh.search(q, k))
     launched = fb.fused_beam_search.launches - before
     out["recall_default"] = recall_of(k_def, want, k)
-    (_, k64), out["search_ef64_s"] = timed(
+    (s64, k64), out["search_ef64_s"] = timed(
         dev, lambda: sh.search(q, k, ef_local=64))
     out["recall_ef64"] = recall_of(k64, want, k)
     log(f"# path 5 (a) on {smi}: {nq} queries at ef_local {ef_def} (the "
@@ -1496,6 +1689,20 @@ def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
     check("sharded_search" in names, "the trace lacks the annotated region")
     check(bool(k1_events), "the trace holds no K1 kernel event")
     check(np.array_equal(k_tr, k_def), "the traced search differs")
+    out["search_ms"] = device_time(lambda: sh.search(q[:TIMED_B], k),
+                                   iters=5) * 1e3
+    with tempfile.TemporaryDirectory(dir=build_dir) as tb:
+        overlap_a = shard_overlap(lambda: sh.search(q[:TIMED_B], k), tb)
+    mem_a, out["peak_before_gib"] = search_memory(
+        lambda: sh.search(q[:TIMED_B], k), [dev])
+    (out["a_resident_gib"], out["a_search_peak_gib"],
+     out["a_search_reserved_gib"]) = mem_a[str(torch.device(dev))]
+    log(f"# path 5 (a) on {smi}: {out['search_ms']:.2f} ms per search of "
+        f"{TIMED_B} queries (host arrays in and out, CUDA events); its "
+        f"shards on one stream under torch.profiler: "
+        + json.dumps(overlap_a) + "; device memory (GiB allocated before "
+        f"one search, allocated at its peak, reserved at its peak) "
+        + json.dumps(mem_a))
 
     # (b) maintenance: remove every tenth key, isolate, compact, persist
     dead = keys[::10]
@@ -1533,6 +1740,8 @@ def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
         size_mb = os.path.getsize(path) / 2**20
         loaded, out["load_s"] = timed(
             dev, lambda: ShardedHNSWIndex.load(path, mesh))
+        with open(path, "rb") as f:
+            digest_a = hashlib.sha256(f.read()).hexdigest()
     s_l, k_l = loaded.search(q, k, ef_local=64)
     log(f"# path 5 (b) persistence on {smi}: save {out['save_s']:.2f} s "
         f"({size_mb:.0f} MiB), load {out['load_s']:.2f} s; keys differing "
@@ -1541,6 +1750,15 @@ def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
           "(b): the loaded index searches differently")
     del sh, loaded
     torch.cuda.empty_cache()
+
+    # (d) the grid: the same rows on the same seed, one slot a shard
+    grid = path5_grid(dev, vecs, q, smi, n_shards, cap, n_chunks, dead,
+                      dict(k_def=k_def, s_def=s_def, k64=k64, s64=s64,
+                           ms=out["search_ms"], digest=digest_a,
+                           overlap=overlap_a, memory=mem_a))
+    out["peak_before_gib"] = max(out["peak_before_gib"],
+                                 grid.pop("peak_before_gib"))
+    out.update(grid)
 
     # (c) two processes on the card, two shards each
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -1570,6 +1788,95 @@ def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
     check(all(r["k1_launches"] == 2 * n_chunks for r in ranks),
           "(c): a rank did not launch K1 once per shard per chunk")
     return out, two
+
+
+def path5_grid(dev, vecs, q, smi, n_shards, cap, n_chunks, dead, a, k=K):
+    """Path 5 (d): the 1M rows on the same seed in a grid of one slot a
+    shard over the card slots (make_mesh(4, devices=...)), each slot
+    searching on its own stream. Its keys and scores at ef_local 32 and
+    64 must equal (a)'s (``a``) bit for bit, K1 must launch once per
+    shard per chunk and its plain version never, and after (b)'s
+    remove, isolate and compact its file must be byte-equal to (a)'s.
+    Prints its ms per search beside (a)'s, the host syncs of a search,
+    how much the shards' kernels overlap and the device memory of a
+    search. Returns what it measured."""
+    import numpy as np
+    import torch
+
+    from duckdb_vss_tpu_torch import HNSWConfig
+    from duckdb_vss_tpu_torch.ops import fused_beam as fb
+    from duckdb_vss_tpu_torch.parallel.sharded import (ShardedHNSWIndex,
+                                                       make_mesh)
+    from duckdb_vss_tpu_torch.utils.timing import device_time
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    build_dir = os.path.join(here, "build")
+    n, d = vecs.shape
+    out = {}
+    slots = card_slots(n_shards)
+    mesh = make_mesh(n_shards, devices=slots)
+    gs = ShardedHNSWIndex(d, HNSWConfig(), mesh, capacity_per_shard=cap)
+    _, out["d_build_s"] = timed(dev, lambda: gs.add(vecs, np.arange(n)))
+    check(gs.cap == cap, f"(d): the capacity grew to {gs.cap}")
+    check(gs._tables(), "(d): the grid runs without the int8 layout")
+    gs.search(q[:64], k)
+    results = {}
+    for ef_local in (None, 64):
+        k1, plain = fb.fused_beam_search.launches, fb.beam_search_plain.calls
+        results[ef_local], out[f"d_search_{ef_local or 32}_s"] = timed(
+            dev, lambda: gs.search(q, k, ef_local=ef_local))
+        check(fb.fused_beam_search.launches - k1 == n_shards * n_chunks,
+              f"(d): K1 launched {fb.fused_beam_search.launches - k1} "
+              f"times, not once per shard per chunk ({n_shards} x "
+              f"{n_chunks})")
+        check(fb.beam_search_plain.calls == plain,
+              "(d): K1's plain version ran")
+    diff = {ef: (int((results[ef][1] != a[kk]).sum()),
+                 int((results[ef][0] != a[ss]).sum()))
+            for ef, kk, ss in ((None, "k_def", "s_def"), (64, "k64", "s64"))}
+    out["d_ms"] = device_time(lambda: gs.search(q[:TIMED_B], k),
+                              iters=5) * 1e3
+    syncs = host_syncs(lambda: gs.search(q[:TIMED_B], k))
+    with tempfile.TemporaryDirectory(dir=build_dir) as tb:
+        overlap = shard_overlap(lambda: gs.search(q[:TIMED_B], k), tb)
+    mem, out["peak_before_gib"] = search_memory(
+        lambda: gs.search(q[:TIMED_B], k), slots)
+    out["d_resident_gib"] = max(m[0] for m in mem.values())
+    out["d_search_peak_gib"] = max(m[1] for m in mem.values())
+    out["d_search_reserved_gib"] = max(m[2] for m in mem.values())
+    log(f"# path 5 (d) the grid on {smi}: slots {slots}; build "
+        f"{out['d_build_s']:.2f} s; {len(q)} queries at ef_local 32 in "
+        f"{out['d_search_32_s']:.3f} s and at 64 in "
+        f"{out['d_search_64_s']:.3f} s; keys and scores differing from (a) "
+        f"at 32 {diff[None]}, at 64 {diff[64]}; K1 {n_shards} x {n_chunks} "
+        f"launches a search, plain 0")
+    log(f"# path 5 (d) on {smi}: {out['d_ms']:.2f} ms per search of "
+        f"{TIMED_B} queries against (a)'s {a['ms']:.2f} ms (host arrays in "
+        f"and out, CUDA events); host syncs in one search {syncs}; "
+        f"under torch.profiler " + json.dumps(overlap) + " against (a)'s "
+        + json.dumps(a["overlap"]) + "; device memory (GiB allocated "
+        "before one search, allocated at its peak, reserved at its peak) "
+        + json.dumps(mem) + " against (a)'s " + json.dumps(a["memory"]))
+    check(diff[None] == (0, 0) and diff[64] == (0, 0),
+          "(d): the grid's keys or scores differ from (a)'s")
+    check(overlap["streams"] == n_shards,
+          f"(d): K1 ran on {overlap['streams']} streams, not one a shard")
+    gs.remove(dead)
+    gs.isolate()
+    gs.compact()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = os.path.join(tmp, "grid.vss")
+        gs.save(path)
+        with open(path, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+    log(f"# path 5 (d) on {smi}: after remove, isolate and compact the "
+        f"file's sha256 {digest[:16]}, (a)'s {a['digest'][:16]}")
+    check(digest == a["digest"], "(d): the grid's file differs from (a)'s")
+    del gs
+    torch.cuda.empty_cache()
+    out["d_overlap"] = overlap["sum_of_shards_ms"] / max(
+        overlap["wall_ms"], 1e-9)
+    return out
 
 
 def run_ranks(out_dir, seed, world=2, timeout_s=600):
@@ -1821,12 +2128,16 @@ def main(argv=None) -> int:
     k2_launches_6 = fg.gather_scores_kernel.launches
     p6["s"] = time.perf_counter() - t0
     log(f"# path 6 on {smi}: {p6['s']:.1f} s; K1 launches {k1_launches_6} "
-        f"(dryrun_multichip(4): {p6['c4_k1']}, (8): {p6['c8_k1']}), plain "
+        f"(dryrun_multichip(4): {p6['c4_k1']}, (8): {p6['c8_k1']}; on the "
+        f"grids {p6['c4grid_k1']} and {p6['c8grid_k1']}), plain "
         f"version calls {fb.beam_search_plain.calls}; K2 launches "
         f"{k2_launches_6}; measured "
         + json.dumps({name: round(v, 4) for name, v in p6.items()}))
     check(p6["c4_k1"] > 0 and p6["c8_k1"] > 0,
           "a dry run never launched K1")
+    # four searches a dry run, each on every slot of the grid
+    check(p6["c4grid_k1"] == 4 * 4 and p6["c8grid_k1"] == 4 * 8,
+          "a dry run on the grid did not launch K1 once per slot per search")
     check(fb.beam_search_plain.calls == 0, "path 6 ran K1's plain version")
     err = max(err, dryrun_kernel_checks())
 
@@ -1978,10 +2289,13 @@ def main(argv=None) -> int:
     p5, two = path5(dev, vecs, q, want, smi, opts.seed, nq / search_s)
     k1_launches_5 = fb.fused_beam_search.launches
     k2_launches_5 = fg.gather_scores_kernel.launches
+    # search_memory reset the peak counters inside path 5
+    peak5_gb = max(p5.pop("peak_before_gib"),
+                   torch.cuda.max_memory_allocated() / 2**30)
     log(f"# path 5 on {smi}: {time.perf_counter() - t0:.1f} s; K1 launches "
         f"{k1_launches_5}, plain version calls {fb.beam_search_plain.calls}"
         f"; K2 launches {k2_launches_5}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; measured "
+        f"{peak5_gb:.2f} GiB; measured "
         + json.dumps({name: round(v, 4) for name, v in p5.items()}))
     check(k1_launches_5 > 0, "path 5 never launched K1")
     check(fb.beam_search_plain.calls == 0, "path 5 ran K1's plain version")

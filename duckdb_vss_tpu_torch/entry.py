@@ -5,15 +5,18 @@ module, __graft_entry__.py).
   plain function on tensors and its example arguments: the mxu descent
   over the upper-level table, the step-by-step base beam over the bf16
   traversal copy, and the exact f32 rerank.
-- dryrun_multichip(n, device): the whole sharded lifecycle on a mesh of
-  n // q shards (q = 2 for an even n >= 4, else 1) on one device: add,
-  search, remove, compact, grow and add again, search
+- dryrun_multichip(n, device, devices): the whole sharded lifecycle on a
+  mesh of n // q shards x q replicas (q = 2 for an even n >= 4, else
+  1): add, search, remove, compact, grow and add again, search
   (sharded_lifecycle, which returns the index it leaves), and the
-  sharded flat index as an exact cross-check. Under an initialized
+  sharded flat index as an exact cross-check. With ``devices`` (n
+  device names) the mesh is the JAX entry's grid, one slot per device;
+  without it every shard sits on ``device``. Under an initialized
   torch.distributed group the ranks split the shards (make_mesh).
 
-Run both on the card: ``python -m duckdb_vss_tpu_torch.entry``. Without
-a CUDA device that raises; the tests pass ``device="cpu"``.
+Run both on the card: ``python -m duckdb_vss_tpu_torch.entry`` (the dry
+run with one slot per card, then the step). Without a CUDA device that
+raises; the tests pass ``device="cpu"`` or ``devices=["cpu"] * n``.
 """
 
 from __future__ import annotations
@@ -60,13 +63,15 @@ def entry(device: str | torch.device = "cuda"):
 
 
 def sharded_lifecycle(n_devices: int,
-                      device: str | torch.device = "cuda"):
+                      device: str | torch.device = "cuda",
+                      devices: list | None = None):
     """The sharded HNSW half of dryrun_multichip, with its asserts: add,
     search, remove, compact, grow and add again, search. Returns (the
     index after its last step, the rows, their keys, the rows added
     after the growth)."""
     n_q = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
-    mesh = make_mesh(n_shards=n_devices // n_q, n_q=n_q, device=device)
+    mesh = make_mesh(n_shards=n_devices // n_q, n_q=n_q, device=device,
+                     devices=devices)
 
     rng = np.random.default_rng(0)
     d = 32
@@ -102,11 +107,12 @@ def sharded_lifecycle(n_devices: int,
 
 
 def dryrun_multichip(n_devices: int,
-                     device: str | torch.device = "cuda") -> None:
+                     device: str | torch.device = "cuda",
+                     devices: list | None = None) -> None:
     """One sharded insert, delete, compact, grow and search cycle on a
-    mesh of ``n_devices`` (vector shards x query groups); raises on any
-    wrong answer."""
-    sh, vecs, keys, _ = sharded_lifecycle(n_devices, device)
+    mesh of ``n_devices`` (vector shards x query groups), on ``devices``
+    (one slot each) or all on ``device``; raises on any wrong answer."""
+    sh, vecs, keys, _ = sharded_lifecycle(n_devices, device, devices)
     # sharded flat path (exact) as a cross-check
     sf = ShardedFlatIndex(sh.dims, MetricKind.L2SQ, sh.mesh,
                           capacity_per_shard=1024)
@@ -117,9 +123,10 @@ def dryrun_multichip(n_devices: int,
 
 
 if __name__ == "__main__":
-    # one shard per card, as the JAX entry runs one per device; without
-    # a card make_mesh raises
-    dryrun_multichip(torch.cuda.device_count())
+    # one slot per card, as the JAX entry runs one per device
+    resolve_device("cuda")  # raises without a card
+    n_cards = torch.cuda.device_count()
+    dryrun_multichip(n_cards, devices=[f"cuda:{i}" for i in range(n_cards)])
     fn, args = entry()
     out = fn(*args)
     print("entry ok:", [tuple(o.shape) for o in out])

@@ -3,22 +3,38 @@ hash-partitioned into S shards, every shard is searched on its own with
 the single-index kernels, and the per-shard top-k sets are merged once
 per query batch.
 
-In the JAX package each shard lives on its own device and an all-gather
-over the mesh merges the per-shard results. Here every shard this
-process owns lives on one device, in stacked tensors with a leading
-shard axis ([S, cap, ...]); a shard's GraphState is a view of row i.
+The mesh is a ("q", "shard") grid of device slots, as the JAX package's
+make_mesh lays one over jax.devices(). ``make_mesh(..., devices=[...])``
+names a device for each slot, row-major as (q, shard): slot (r, j) holds
+shard j of replica r, and a name may repeat (several slots of one
+card). Without ``devices`` the grid is one slot that holds every shard
+on one device. The tensors of the shards that one replica row keeps on
+one device are stacked on a leading shard axis ([S_d, cap, ...]); a
+shard's GraphState is a view of its row there. Every mutation runs on
+replica row 0, each shard on its own device, and is then copied to the
+other rows, so the replicas stay equal bit for bit.
+
+A search splits each padded chunk of queries into one contiguous block
+per replica row (the JAX package's P("q", None)). Every shard of a row
+searches the row's block on its slot's CUDA stream; the host issues
+every slot of every row and chunk before it waits on any. Each row's
+per-shard results then meet on the row's first device, ordered after
+the streams that made them (copies between cards run on the producing
+stream), where one shard-major concatenation is cut to the best k: the
+all-gather and top-k of the JAX package's shard_map.
 
 Under an initialized ``torch.distributed`` process group (gloo), P
 processes share the S shards: rank r owns the contiguous block
 ``[r*S/P, (r+1)*S/P)``, as the JAX package's mesh orders devices over
-processes. Every rank calls every method with the same arguments, as the
-JAX package's SPMD workers do. Host state (keys, placement, free-lists,
-the level rng, compaction permutations) stays identical on every rank;
-device tensors hold only the rank's own shards. The few host values that
-span shards (the empty-graph test, compaction's inputs, stats, the
-search merge, save) are all-gathered on the CPU, since gloo takes no
-CUDA tensors. So a P-rank search returns the same keys and scores as a
-one-process search of the same graphs.
+processes, and lays its own grid over it. Every rank calls every method
+with the same arguments, as the JAX package's SPMD workers do. Host
+state (keys, placement, free-lists, the level rng, compaction
+permutations) stays identical on every rank; device tensors hold only
+the rank's own shards. The few host values that span shards (the
+empty-graph test, compaction's inputs, stats, the search merge, save)
+are all-gathered on the CPU, since gloo takes no CUDA tensors. So a
+P-rank search returns the same keys and scores as a one-process search
+of the same graphs.
 
 Of the JAX package's ``DVT_*`` settings, only the layout is a
 constructor keyword: K1 always runs on the int8 layout, there is no
@@ -28,6 +44,7 @@ attribute, as in HNSWIndex.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import NamedTuple
@@ -47,7 +64,7 @@ from duckdb_vss_tpu_torch.ops.fused_beam import pack_meta
 from duckdb_vss_tpu_torch.ops.topk import flat_topk, smallest_k
 from duckdb_vss_tpu_torch.utils import persist as PS
 from duckdb_vss_tpu_torch.utils.config import HNSWConfig, MetricKind
-from duckdb_vss_tpu_torch.utils.convert import (device_tensor, host_array,
+from duckdb_vss_tpu_torch.utils.convert import (device_tensor,
                                                 sharded_from_arrays,
                                                 sharded_to_arrays)
 from duckdb_vss_tpu_torch.utils.device import resolve_device
@@ -55,6 +72,7 @@ from duckdb_vss_tpu_torch.utils.padding import pad_2d_np, pad_dim, round_up
 
 SCATTER_ROWS = 4096  # rows per host-to-device step of an add
 BULK_MIN_ROWS = 4096  # an add into empty graphs of this many rows bulk-builds
+STORE_FIELDS = ("vectors", "vec_sq", "valid")
 # the sharded file's sections, in the JAX package's order, and the
 # sharded_to_arrays name each holds (the file has no norms: load sums them)
 SECTIONS = (
@@ -68,39 +86,93 @@ SECTIONS = (
     ("pl_load", "pl_load"))
 
 
-class Mesh:
-    """S shards (``shape["shard"]``) on one device. ``shape["q"]`` only
-    sets the query padding multiple, max(8, q). Under a process group,
-    ``shards`` is the block of shards this rank owns; else all of them."""
+class Slot(NamedTuple):
+    """One place of the mesh's grid: its device and the local shards
+    (positions in ``Mesh.shards``) it holds and searches."""
 
-    def __init__(self, n_shards: int, n_q: int, device: torch.device,
-                 world_size: int = 1, rank: int = 0):
+    device: torch.device
+    shards: tuple[int, ...]
+
+
+class Mesh:
+    """The ("q", "shard") grid of one process. ``shards`` is the block of
+    shards this rank owns under a process group, else all of them.
+    ``grid`` holds one row of slots per replica: with ``devices`` (n_q x
+    S_local devices, row-major), slot (r, j) holds local shard j of
+    replica r on ``devices[r * S_local + j]``; without it the grid is one
+    slot that holds every local shard on ``device``, and ``shape["q"]``
+    only sets the query padding multiple, max(8, q)."""
+
+    def __init__(self, n_shards: int, n_q: int,
+                 device: torch.device | None = None, world_size: int = 1,
+                 rank: int = 0, devices: list | None = None):
         self.shape = {"q": int(n_q), "shard": int(n_shards)}
-        self.device = device
         self.world_size = int(world_size)
         self.rank = int(rank)
         per = self.shape["shard"] // self.world_size
         self.shards = range(self.rank * per, (self.rank + 1) * per)
+        if devices is None:
+            self.grid = ((Slot(device, tuple(range(per))),),)
+        else:
+            if len(devices) != self.shape["q"] * per:
+                raise ValueError(
+                    f"{len(devices)} devices for a grid of {self.shape['q']}"
+                    f" x {per} slots")
+            self.grid = tuple(
+                tuple(Slot(devices[r * per + j], (j,)) for j in range(per))
+                for r in range(self.shape["q"]))
+        self.device = self.grid[0][0].device
+        self._streams: dict = {}
+
+    def stream(self, row: int, slot: int):
+        """The CUDA stream of slot ``slot`` of row ``row``, made at first
+        use; None for a CPU slot."""
+        dev = self.grid[row][slot].device
+        if dev.type != "cuda":
+            return None
+        if (row, slot) not in self._streams:
+            self._streams[(row, slot)] = torch.cuda.Stream(device=dev)
+        return self._streams[(row, slot)]
 
     def __repr__(self) -> str:
-        return (f"Mesh(shape={self.shape}, device={self.device}, rank "
+        slots = [[str(s.device) for s in row] for row in self.grid]
+        return (f"Mesh(shape={self.shape}, slots={slots}, rank "
                 f"{self.rank} of {self.world_size}, shards {self.shards})")
 
 
+def _slot_device(name) -> torch.device:
+    """A slot's device as given (resolve_device raises for a missing
+    card); a CUDA name without an index means the current card."""
+    dev = resolve_device(name)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def make_mesh(n_shards: int | None = None, n_q: int = 1,
-              device: str | torch.device = "cuda") -> Mesh:
-    """S shards on ``device`` (one per process when n_shards is None).
-    With an initialized torch.distributed group, the world size must
-    divide S."""
-    dev = resolve_device(device)
+              device: str | torch.device = "cuda",
+              devices: list | None = None) -> Mesh:
+    """A ("q", "shard") mesh. Without ``devices``: S shards on ``device``
+    (one per process when n_shards is None). ``devices`` lays a grid
+    over named devices, as the JAX package's make_mesh reshapes
+    jax.devices(): n_q * S_local names read row-major as (q, shard),
+    S_local being S over the processes of an initialized
+    torch.distributed group (each rank passes the list for its own block
+    of shards). A name may repeat: ``["cuda:0"] * 4`` is four slots of
+    one card. With a process group, the world size must divide S."""
     world, rank = 1, 0
     if dist.is_available() and dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
-    n_shards = int(n_shards or world)
-    if n_shards % world:
+    if devices is None:
+        device = resolve_device(device)
+        n_shards = int(n_shards or world)
+    else:
+        devices = [_slot_device(d) for d in devices]
+        n_shards = int(n_shards or len(devices) // int(n_q) * world)
+    if n_shards < 1 or n_shards % world:
         raise ValueError(f"{world} processes cannot split {n_shards} shards "
                          "evenly")
-    return Mesh(n_shards, n_q, dev, world, rank)
+    return Mesh(n_shards, n_q, device, world, rank, devices=devices)
 
 
 def shard_keys(keys: np.ndarray, n_shards: int) -> np.ndarray:
@@ -190,25 +262,6 @@ def _pad_axis1(t: torch.Tensor, new_len: int, fill) -> torch.Tensor:
     return torch.cat([t, extra], dim=1)
 
 
-def _empty_store(n_local: int, cap: int, d_pad: int, dtype: torch.dtype,
-                 device: torch.device):
-    """(vectors [n, cap, d_pad], vec_sq [n, cap], valid [n, cap]) of
-    n_local empty shards."""
-    return (torch.zeros((n_local, cap, d_pad), dtype=dtype, device=device),
-            torch.zeros((n_local, cap), dtype=torch.float32, device=device),
-            torch.zeros((n_local, cap), dtype=torch.bool, device=device))
-
-
-def _grow_store(index, new_cap: int) -> None:
-    """Pad an index's stacked store and host key table to new_cap rows a
-    shard."""
-    index._vectors = _pad_axis1(index._vectors, new_cap, 0)
-    index._vec_sq = _pad_axis1(index._vec_sq, new_cap, 0)
-    index._valid = _pad_axis1(index._valid, new_cap, False)
-    index._keys = np.concatenate([index._keys, np.full(
-        (index.n_shards, new_cap - index.cap), -1, np.int64)], axis=1)
-
-
 def _store_rows(vectors, vec_sq, valid, slots: np.ndarray,
                 rows: np.ndarray) -> None:
     """Write f32 ``rows`` [n, dims] into one shard's store slices at
@@ -228,21 +281,21 @@ def _store_rows(vectors, vec_sq, valid, slots: np.ndarray,
 
 
 def _merge(mesh: Mesh, scores: torch.Tensor, gids: torch.Tensor, k: int
-           ) -> tuple[np.ndarray, np.ndarray]:
+           ) -> tuple[torch.Tensor, torch.Tensor]:
     """The distributed top-k merge: this rank's per-shard [S_local, B, k]
     results, gathered to [S, B, k], concatenated shard-major to [B, S*k]
-    and cut to the best k. Ties fall to the lowest position, i.e. the
-    lowest shard, as lax.top_k on the JAX package's concatenation. The
-    cut runs on the mesh's device for any number of processes."""
+    and cut to the best k on the device that holds them. Ties fall to
+    the lowest position, i.e. the lowest shard, as lax.top_k on the JAX
+    package's concatenation."""
     if mesh.world_size > 1:
-        scores = gather_shards(mesh, scores).to(mesh.device)
-        gids = gather_shards(mesh, gids).to(mesh.device)
+        dev = scores.device
+        scores = gather_shards(mesh, scores).to(dev)
+        gids = gather_shards(mesh, gids).to(dev)
     s, b, kk = scores.shape
     cat_s = scores.permute(1, 0, 2).reshape(b, s * kk)
     cat_g = gids.permute(1, 0, 2).reshape(b, s * kk)
     out_s, pos = smallest_k(cat_s, k)
-    return (out_s.cpu().numpy(),
-            torch.gather(cat_g, 1, pos).cpu().numpy())
+    return out_s, torch.gather(cat_g, 1, pos)
 
 
 def _keys_of(keys: np.ndarray, gids: np.ndarray) -> np.ndarray:
@@ -253,15 +306,192 @@ def _keys_of(keys: np.ndarray, gids: np.ndarray) -> np.ndarray:
     return out
 
 
-def _query_chunks(queries: np.ndarray, chunk: int, mult: int, d_pad: int,
-                  device: torch.device):
-    """Host-side chunks of the batch, each padded to a multiple of
-    ``mult`` rows and d_pad columns, on the device: (tensor, rows)."""
-    for off in range(0, queries.shape[0], chunk):
+@contextlib.contextmanager
+def _on_stream(stream, *inputs: torch.Tensor):
+    """Run the body on ``stream`` (None: where it is), after the work
+    already queued on the current stream of its device (the inputs, the
+    tables), with ``inputs`` kept alive until the stream is done."""
+    if stream is None:
+        yield
+        return
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    for t in inputs:
+        t.record_stream(stream)
+    with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+        yield
+
+
+def _to_row_device(mesh: Mesh, row: int, res: dict):
+    """Row ``row``'s per-shard results ({j: (scores, gids)}) on the row's
+    first device, in shard order: [S_local, B_q, k] each, ordered after
+    the streams that made them. A result on another device is copied on
+    its own stream; PyTorch orders the copy after that stream and the
+    row device's current stream after the copy."""
+    slots = mesh.grid[row]
+    dev = slots[0].device
+    cur = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    moved = {}
+    for i, slot in enumerate(slots):
+        stream = mesh.stream(row, i)
+        local = slot.device == dev
+        if local and stream is not None:
+            cur.wait_stream(stream)
+        for j in slot.shards:
+            s, g = res[j]
+            if not local:
+                with _on_stream(stream):
+                    s = s.to(dev, non_blocking=True)
+                    g = g.to(dev, non_blocking=True)
+            elif stream is not None:
+                s.record_stream(cur)
+                g.record_stream(cur)
+            moved[j] = (s, g)
+    order = range(len(moved))
+    return (torch.stack([moved[j][0] for j in order]),
+            torch.stack([moved[j][1] for j in order]))
+
+
+def _grid_search(index, queries: np.ndarray, chunk: int, k: int, run):
+    """Top-k of ``queries`` [B, D] over every shard of the grid. Each
+    chunk of ``chunk`` rows, padded, is split into one contiguous block
+    per replica row; every shard j of row r searches the row's block on
+    its slot's stream (``run(r, j, block)`` -> scores [B_q, k], global
+    ids [B_q, k]), every block of every chunk uploaded first (a copy
+    from pageable memory waits for its stream) and every search issued
+    before the host waits on any. Each row's results are merged on its
+    first device (_merge). Returns (scores [B, k], global ids [B, k]) on
+    the host, in query order."""
+    if not len(queries):
+        return np.zeros((0, k), np.float32), np.zeros((0, k), np.int64)
+    mesh = index.mesh
+    rows = mesh.grid
+    mult = math.lcm(max(8, mesh.shape["q"]), len(rows))
+    chunk = round_up(max(int(chunk), mult), mult)
+    blocks = []  # per chunk: (rows kept, per row {device: query block})
+    for off in range(0, len(queries), chunk):
         qc = queries[off:off + chunk]
-        b_pad = round_up(max(len(qc), 1), mult)
-        yield (torch.from_numpy(pad_2d_np(qc, b_pad, d_pad)).to(device),
-               len(qc))
+        qp = pad_2d_np(qc, round_up(len(qc), mult), index.d_pad)
+        bq = len(qp) // len(rows)
+        blocks.append((len(qc), [
+            {dev: torch.from_numpy(qp[r * bq:(r + 1) * bq]).to(dev)
+             for dev in dict.fromkeys(s.device for s in row)}
+            for r, row in enumerate(rows)]))
+    issued = []  # per chunk, per row: {local shard: (scores, gids)}
+    for _, per_row in blocks:
+        issued.append([{} for _ in rows])
+        for r, row in enumerate(rows):
+            for i, slot in enumerate(row):
+                q = per_row[r][slot.device]
+                with _on_stream(mesh.stream(r, i), q):
+                    for j in slot.shards:
+                        issued[-1][r][j] = run(r, j, q)
+    merged = [[_merge(mesh, *_to_row_device(mesh, r, res), k)
+               for r, res in enumerate(per_chunk)] for per_chunk in issued]
+    for r, row in enumerate(rows):  # later work on a card waits for its slots
+        for i, slot in enumerate(row):
+            stream = mesh.stream(r, i)
+            if stream is not None:
+                torch.cuda.current_stream(slot.device).wait_stream(stream)
+    scores, gids = [], []
+    for (n_keep, _), out in zip(blocks, merged):
+        s_host = np.concatenate([s.cpu().numpy() for s, _ in out])
+        g_host = np.concatenate([g.cpu().numpy() for _, g in out])
+        scores.append(s_host[:n_keep])
+        gids.append(g_host[:n_keep])
+    return np.concatenate(scores), np.concatenate(gids)
+
+
+class _Group:
+    """The local shards that one replica row keeps on one device: in
+    ``t``, each field's tensor with those shards stacked on a leading
+    axis in shard order ([S_d, ...]), and the search tables built from
+    them (upper and int8 tables per shard, the bf16 traversal copy)."""
+
+    def __init__(self, row: int, device: torch.device,
+                 shards: tuple[int, ...]):
+        self.row, self.device, self.shards = row, device, shards
+        self.t: dict[str, torch.Tensor] = {}
+        self.clear_tables()
+
+    def clear_tables(self) -> None:
+        self.upper = self.nbr = self.trav = None
+
+
+class _ShardStore:
+    """The tensors of a sharded index on its mesh's grid, one _Group per
+    device of each replica row. Every change is made to row 0, through
+    the views ``_view`` gives, and copied to the other rows by
+    ``_sync_replicas`` (tombstones are written into every row)."""
+
+    def _make_groups(self, fields: dict) -> None:
+        """The groups of the mesh's grid, with ``fields`` (name -> (shape
+        after the shard axis, dtype, fill)) allocated on their devices."""
+        self.groups = []
+        for r, row in enumerate(self.mesh.grid):
+            on: dict = {}
+            for slot in row:
+                on.setdefault(slot.device, []).extend(slot.shards)
+            self.groups += [_Group(r, dev, tuple(sorted(sh)))
+                            for dev, sh in on.items()]
+        self._where = {(g.row, j): (g, p) for g in self.groups
+                       for p, j in enumerate(g.shards)}
+        for g in self.groups:
+            g.t = {name: torch.full((len(g.shards),) + shape, fill,
+                                    dtype=dtype, device=g.device)
+                   for name, (shape, dtype, fill) in fields.items()}
+
+    def _view(self, name: str, j: int, row: int = 0) -> torch.Tensor:
+        """Field ``name`` of local shard j in replica ``row``: a view."""
+        g, p = self._where[(row, j)]
+        return g.t[name][p]
+
+    def _store(self, j: int, row: int = 0):
+        """(vectors, vec_sq, valid) of local shard j: views."""
+        return tuple(self._view(n, j, row) for n in STORE_FIELDS)
+
+    def _stack(self, name: str) -> torch.Tensor:
+        """Field ``name`` of row 0's shards, [S_local, ...]: the group's
+        own tensor where row 0 is one group, else a copy on the mesh's
+        device."""
+        row0 = [g for g in self.groups if g.row == 0]
+        if len(row0) == 1:
+            return row0[0].t[name]
+        return torch.stack([self._view(name, j).to(self.mesh.device)
+                            for j in range(len(self.mesh.shards))])
+
+    def _gather(self, name: str) -> torch.Tensor:
+        """Field ``name`` of all S shards, on the CPU (gather_shards)."""
+        return gather_shards(self.mesh, self._stack(name))
+
+    @property
+    def _vectors(self) -> torch.Tensor:
+        """Row 0's store rows, [S_local, cap, d_pad] (see ``_stack``)."""
+        return self._stack("vectors")
+
+    def _grow(self, new_cap: int, widths: dict) -> None:
+        """Pad the store and the fields in ``widths`` (name -> (new
+        length of axis 1, fill)) of row 0, and the host key table, to
+        new_cap rows a shard."""
+        widths = {"vectors": (new_cap, 0), "vec_sq": (new_cap, 0),
+                  "valid": (new_cap, False), **widths}
+        for g in self.groups:
+            if g.row == 0:
+                for name, (n, fill) in widths.items():
+                    g.t[name] = _pad_axis1(g.t[name], n, fill)
+        self._keys = np.concatenate([self._keys, np.full(
+            (self.n_shards, new_cap - self.cap), -1, np.int64)], axis=1)
+        self.cap = new_cap
+
+    def _sync_replicas(self, names=None) -> None:
+        """Copy the fields ``names`` (default: every field) of row 0 into
+        the other replica rows, shard by shard onto each replica's
+        device, and drop their tables."""
+        for g in self.groups:
+            if g.row:
+                g.t.update({name: torch.stack(
+                    [self._view(name, j).to(g.device) for j in g.shards])
+                    for name in (names or list(g.t))})
+                g.clear_tables()
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +499,7 @@ def _query_chunks(queries: np.ndarray, chunk: int, mult: int, d_pad: int,
 # ---------------------------------------------------------------------------
 
 
-class ShardedFlatIndex:
+class ShardedFlatIndex(_ShardStore):
     """Hash-partitioned brute-force index: keys placed by ``key mod S``,
     each shard scanned exactly, one merge per batch."""
 
@@ -281,9 +511,10 @@ class ShardedFlatIndex:
         self.mesh = mesh
         self.n_shards = mesh.shape["shard"]
         self.cap = _pow2(max(1024, int(capacity_per_shard)))
-        self._vectors, self._vec_sq, self._valid = _empty_store(
-            len(mesh.shards), self.cap, self.d_pad, torch.float32,
-            mesh.device)
+        self._make_groups({
+            "vectors": ((self.cap, self.d_pad), torch.float32, 0),
+            "vec_sq": ((self.cap,), torch.float32, 0),
+            "valid": ((self.cap,), torch.bool, False)})
         self._keys = np.full((self.n_shards, self.cap), -1, np.int64)
         self._counts = np.zeros((self.n_shards,), np.int64)
 
@@ -292,8 +523,8 @@ class ShardedFlatIndex:
         new_cap = _pow2(capacity_per_shard)
         if new_cap <= self.cap:
             return
-        _grow_store(self, new_cap)
-        self.cap = new_cap
+        self._grow(new_cap, {})
+        self._sync_replicas()
 
     def add(self, vectors: np.ndarray, keys: np.ndarray) -> None:
         vectors = np.asarray(vectors, np.float32)
@@ -309,9 +540,9 @@ class ShardedFlatIndex:
             self._keys[i, slots] = keys[idx]
             self._counts[i] += len(idx)
             if i in self.mesh.shards:
-                j = i - self.mesh.shards.start
-                _store_rows(self._vectors[j], self._vec_sq[j], self._valid[j],
-                            slots, vectors[idx])
+                _store_rows(*self._store(i - self.mesh.shards.start), slots,
+                            vectors[idx])
+        self._sync_replicas()
 
     def search(self, queries: np.ndarray, k: int):
         """Exact top-k over every shard. Returns (scores [B, k], keys
@@ -319,22 +550,18 @@ class ShardedFlatIndex:
         queries = np.asarray(queries, np.float32)
         if queries.ndim == 1:
             queries = queries[None]
-        b = queries.shape[0]
-        b_pad = round_up(max(b, 1), max(8, self.mesh.shape["q"]))
-        q = torch.from_numpy(pad_2d_np(queries, b_pad, self.d_pad)).to(
-            self.mesh.device)
-        outs_s, outs_g = [], []
-        for j, i in enumerate(self.mesh.shards):
-            scores, slots = flat_topk(
-                q, self._vectors[j], int(k), self.metric,
-                vec_sq=self._vec_sq[j], valid=self._valid[j],
-                block_n=min(16384, self.cap))
-            outs_s.append(scores)
-            outs_g.append(torch.where(slots >= 0, i * self.cap + slots.long(),
-                                      -1))
-        scores, gids = _merge(self.mesh, torch.stack(outs_s),
-                              torch.stack(outs_g), int(k))
-        return scores[:b], _keys_of(self._keys, gids[:b])
+        start = self.mesh.shards.start
+
+        def run(row, j, q):
+            vectors, vec_sq, valid = self._store(j, row)
+            scores, slots = flat_topk(q, vectors, int(k), self.metric,
+                                      vec_sq=vec_sq, valid=valid,
+                                      block_n=min(16384, self.cap))
+            return scores, torch.where(
+                slots >= 0, (start + j) * self.cap + slots.long(), -1)
+
+        scores, gids = _grid_search(self, queries, len(queries), int(k), run)
+        return scores, _keys_of(self._keys, gids)
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +583,9 @@ class ShardedGraph(NamedTuple):
     upper_count: torch.Tensor  # [S]
 
 
+GRAPH_FIELDS = ShardedGraph._fields
+
+
 def ef_local_policy(ef: int, k: int, n_shards: int,
                     ef_local: int | None = None) -> int:
     """The beam width each shard searches at. By default it scales down
@@ -370,7 +600,7 @@ def ef_local_policy(ef: int, k: int, n_shards: int,
     return round_up(ef_req, 16)
 
 
-class ShardedHNSWIndex:
+class ShardedHNSWIndex(_ShardStore):
     """Hash-partitioned HNSW: independent per-shard subgraphs built and
     searched with the single-index kernels (the mxu descent, the int8
     neighborhood layout and kernel K1 on the card), one top-k merge per
@@ -382,7 +612,7 @@ class ShardedHNSWIndex:
                  build_batch: int = 128, placement_alpha: int = 16,
                  scalar_kind: str = "f32",
                  layout: str = "auto"):  # "auto" (int8 neighborhood tiles,
-        # searched by K1, on a CUDA device within nbr_budget_bytes) |
+        # searched by K1, on CUDA devices within nbr_budget_bytes) |
         # "neighborhood" | "flat"
         if scalar_kind not in SCALAR_DTYPES:
             raise ValueError(
@@ -394,7 +624,6 @@ class ShardedHNSWIndex:
         self.d_pad = pad_dim(self.dims)
         self.config = config
         self.mesh = mesh
-        self.device = mesh.device
         self.n_shards = mesh.shape["shard"]
         self.build_batch = build_batch
         self.scalar_kind = scalar_kind
@@ -403,59 +632,62 @@ class ShardedHNSWIndex:
         s = self.n_shards
         self._rng = np.random.default_rng(seed)
         self.placement = VirtualPlacement(s, alpha=placement_alpha)
-        self._vectors, self._vec_sq, self._valid = _empty_store(
-            len(mesh.shards), self.cap, self.d_pad, self._dtype, self.device)
+        self._make_groups(self._fields())
         self._keys = np.full((s, self.cap), -1, np.int64)
         self._key_to_slot = [dict() for _ in range(s)]
         self._free_slots = [[] for _ in range(s)]
         self._next_slot = np.zeros((s,), np.int64)
-        self.graph = self._empty_graph()
-        self._upper_cache = None
-        self._nbr_cache = None
-        self._trav_cache = None
         self.layout = layout
         self.nbr_budget_bytes = NBR_BUDGET_BYTES
         self.build_stats: list[dict] = []  # the last bulk build's, per shard
         self.is_dirty = False
 
     # -- storage helpers --------------------------------------------------
-    def _empty_graph(self) -> ShardedGraph:
-        n, cap, cfg = len(self.mesh.shards), self.cap, self.config
+    def _fields(self) -> dict:
+        """Every per-shard field of empty shards: (shape, dtype, fill)."""
+        cap, cfg, i32 = self.cap, self.config, torch.int32
         cap_u = max(cap // UPPER_DIV, 64)
+        return {"vectors": ((cap, self.d_pad), self._dtype, 0),
+                "vec_sq": ((cap,), torch.float32, 0),
+                "valid": ((cap,), torch.bool, False),
+                "neighbors0": ((cap, cfg.m0), i32, -1),
+                "upper_neighbors": ((cap_u, L_MAX * cfg.m), i32, -1),
+                "upper_slot": ((cap,), i32, -1),
+                "upper_node": ((cap_u,), i32, -1),
+                "levels": ((cap,), i32, -1),
+                "entry_node": ((), i32, -1),
+                "max_level": ((), i32, -1),
+                "upper_count": ((), i32, 0)}
 
-        def full(shape, fill):
-            return torch.full(shape, fill, dtype=torch.int32,
-                              device=self.device)
+    @property
+    def graph(self) -> ShardedGraph:
+        """Row 0's graphs, [S_local, ...] (see ``_stack``)."""
+        return ShardedGraph(*(self._stack(f) for f in GRAPH_FIELDS))
 
-        return ShardedGraph(
-            neighbors0=full((n, cap, cfg.m0), -1),
-            upper_neighbors=full((n, cap_u, L_MAX * cfg.m), -1),
-            upper_slot=full((n, cap), -1),
-            upper_node=full((n, cap_u), -1),
-            levels=full((n, cap), -1),
-            entry_node=full((n,), -1),
-            max_level=full((n,), -1),
-            upper_count=full((n,), 0),
-        )
-
-    def _state(self, j: int) -> GraphState:
-        """The GraphState of local shard j: views of row j."""
-        return GraphState(*(t[j] for t in self.graph))
+    def _state(self, j: int, row: int = 0) -> GraphState:
+        """The GraphState of local shard j: views."""
+        return GraphState(*(self._view(f, j, row) for f in GRAPH_FIELDS))
 
     def _put_state(self, j: int, st: GraphState) -> None:
-        """Write a shard's new GraphState into row j of the stack."""
-        for dst, src in zip(self.graph, st):
-            if dst[j].data_ptr() != src.data_ptr():
-                dst[j].copy_(src)
+        """Write a shard's new GraphState into its views in row 0."""
+        for f, src in zip(GRAPH_FIELDS, st):
+            dst = self._view(f, j)
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+
+    def _cap_u(self) -> int:
+        return self.groups[0].t["upper_neighbors"].shape[1]
 
     def _local(self):
         """(local position, global shard) of every shard this rank owns."""
         return enumerate(self.mesh.shards)
 
-    def _invalidate(self):
-        self._upper_cache = None
-        self._nbr_cache = None
-        self._trav_cache = None
+    def _invalidate(self, names=None):
+        """After a mutation of row 0: copy the fields ``names`` (default:
+        every field) to the replicas, drop every table."""
+        self._sync_replicas(names)
+        for g in self.groups:
+            g.clear_tables()
         self.is_dirty = True
 
     def __len__(self) -> int:
@@ -473,16 +705,11 @@ class ShardedHNSWIndex:
         new_cap = _pow2(capacity_per_shard)
         if new_cap <= self.cap:
             return
-        _grow_store(self, new_cap)
-        g = self.graph
         cap_u = max(new_cap // UPPER_DIV, 64)
-        self.graph = g._replace(
-            neighbors0=_pad_axis1(g.neighbors0, new_cap, -1),
-            upper_neighbors=_pad_axis1(g.upper_neighbors, cap_u, -1),
-            upper_slot=_pad_axis1(g.upper_slot, new_cap, -1),
-            upper_node=_pad_axis1(g.upper_node, cap_u, -1),
-            levels=_pad_axis1(g.levels, new_cap, -1))
-        self.cap = new_cap
+        self._grow(new_cap, {
+            "neighbors0": (new_cap, -1), "upper_neighbors": (cap_u, -1),
+            "upper_slot": (new_cap, -1), "upper_node": (cap_u, -1),
+            "levels": (new_cap, -1)})
         self._invalidate()
 
     # -- build ------------------------------------------------------------
@@ -496,7 +723,8 @@ class ShardedHNSWIndex:
     def add(self, vectors: np.ndarray, keys: np.ndarray) -> None:
         """Place keys onto shards (virtual-shard, load-aware), store the
         rows, then bulk-build empty graphs (every graph empty and at
-        least 4096 rows in all) or insert in ``build_batch`` steps."""
+        least 4096 rows in all) or insert in ``build_batch`` steps, each
+        shard on its own device."""
         vectors = np.asarray(vectors, np.float32)
         keys = np.asarray(keys, np.int64).reshape(-1)
         shards = self.placement.place(keys)
@@ -528,12 +756,10 @@ class ShardedHNSWIndex:
             self._keys[i, sl] = keys[idx]
             slot_lists.append(sl.astype(np.int32))
         for j, i in self._local():
-            _store_rows(self._vectors[j], self._vec_sq[j], self._valid[j],
-                        slot_lists[i], vectors[per_shard[i]])
+            _store_rows(*self._store(j), slot_lists[i], vectors[per_shard[i]])
 
         cfg = self.config
-        graphs_empty = int(gather_shards(self.mesh, self.graph.max_level)
-                           .max()) < 0
+        graphs_empty = int(self._gather("max_level").max()) < 0
         if graphs_empty and len(keys) >= BULK_MIN_ROWS:
             # every rank draws every shard's levels, in shard order, so the
             # shared generator advances alike everywhere; each rank then
@@ -542,10 +768,11 @@ class ShardedHNSWIndex:
             self.build_stats = []
             for j, i in self._local():
                 stats: dict = {}
+                vecs, vec_sq, _ = self._store(j)
                 self._put_state(j, bulk_build(
-                    self._vectors[j], self._vec_sq[j], slot_lists[i],
-                    lv_lists[i], cfg, cfg.metric,
-                    host_vectors=vectors[per_shard[i]], stats_out=stats))
+                    vecs, vec_sq, slot_lists[i], lv_lists[i], cfg,
+                    cfg.metric, host_vectors=vectors[per_shard[i]],
+                    stats_out=stats))
                 self.build_stats.append(stats)
             self._invalidate()
             return
@@ -563,10 +790,11 @@ class ShardedHNSWIndex:
             for j, i in self._local():
                 if (batch_slots[i] < 0).all():
                     continue  # a batch of pad rows changes nothing
+                vecs, vec_sq, _ = self._store(j)
                 st, _ = insert_batch(
-                    self._state(j), self._vectors[j], self._vec_sq[j],
-                    torch.from_numpy(batch_slots[i]).to(self.device),
-                    torch.from_numpy(batch_levels[i]).to(self.device),
+                    self._state(j), vecs, vec_sq,
+                    torch.from_numpy(batch_slots[i]).to(vecs.device),
+                    torch.from_numpy(batch_levels[i]).to(vecs.device),
                     cfg.metric, cfg.m, cfg.m0, cfg.ef_construction)
                 self._put_state(j, st)
         self._invalidate()
@@ -591,22 +819,27 @@ class ShardedHNSWIndex:
         n = int(removed.sum())
         if n == 0:
             return 0
-        for j, i in self._local():
-            if rows[i]:
-                self._valid[j][torch.tensor(rows[i], dtype=torch.int64,
-                                            device=self.device)] = False
+        # tombstones only, written into every replica row: no table
+        # depends on valid, so every row keeps its tables
+        for r in range(len(self.mesh.grid)):
+            for j, i in self._local():
+                if rows[i]:
+                    valid = self._view("valid", j, r)
+                    valid[torch.tensor(rows[i], dtype=torch.int64,
+                                       device=valid.device)] = False
         self.placement.unplace_counts(removed)
-        self.is_dirty = True  # tombstones only; caches stay valid
+        self.is_dirty = True
         return n
 
     def isolate(self) -> None:
         """Drop edges into tombstoned nodes on every shard."""
         for j, _ in self._local():
-            nb0, un = _isolate(self.graph.neighbors0[j],
-                               self.graph.upper_neighbors[j], self._valid[j])
-            self.graph.neighbors0[j] = nb0
-            self.graph.upper_neighbors[j] = un
-        self._invalidate()
+            nb0, un = self._view("neighbors0", j), self._view(
+                "upper_neighbors", j)
+            new_nb0, new_un = _isolate(nb0, un, self._view("valid", j))
+            nb0.copy_(new_nb0)
+            un.copy_(new_un)
+        self._invalidate(("neighbors0", "upper_neighbors"))
 
     def compact(self) -> None:
         """Per-shard slot-permutation compaction (usearch compact(),
@@ -614,10 +847,10 @@ class ShardedHNSWIndex:
         from valid, levels and upper_slot, identically on every rank,
         then applied to each shard's tensors on its device."""
         s, cap = self.n_shards, self.cap
-        valid = gather_shards(self.mesh, self._valid).numpy()
-        levels = gather_shards(self.mesh, self.graph.levels).numpy()
-        uslot = gather_shards(self.mesh, self.graph.upper_slot).numpy()
-        cap_u = self.graph.upper_neighbors.shape[1]
+        valid = self._gather("valid").numpy()
+        levels = self._gather("levels").numpy()
+        uslot = self._gather("upper_slot").numpy()
+        cap_u = self._cap_u()
 
         perm = np.zeros((s, cap), np.int32)
         remap = np.full((s, cap + 1), -1, np.int32)
@@ -658,12 +891,13 @@ class ShardedHNSWIndex:
             self._free_slots[i] = []
             self._next_slot[i] = n_live
 
-        g, dev = self.graph, self.device
-
-        def on_dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
         for j, i in self._local():
+            v = {f: self._view(f, j) for f in STORE_FIELDS + GRAPH_FIELDS}
+            dev = v["vectors"].device
+
+            def on_dev(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
             p = on_dev(perm[i]).long()
             rm = on_dev(remap[i])
             live = on_dev(row_live[i])
@@ -672,74 +906,95 @@ class ShardedHNSWIndex:
             def remap_ids(tbl):
                 return rm[torch.where(tbl >= 0, tbl, cap).long()]
 
-            nb0 = torch.where(live[:, None], remap_ids(g.neighbors0[j][p]), -1)
+            nb0 = torch.where(live[:, None], remap_ids(v["neighbors0"][p]), -1)
             un = torch.where(ulive[:, None], remap_ids(
-                g.upper_neighbors[j][on_dev(old_uslot[i]).long()]), -1)
+                v["upper_neighbors"][on_dev(old_uslot[i]).long()]), -1)
             # dead rows multiply to (signed) zeros, as in the JAX package
-            self._vectors[j] = self._vectors[j][p] * live[:, None]
-            self._vec_sq[j] = self._vec_sq[j][p] * live
-            self._valid[j] = live
-            g.neighbors0[j] = nb0
-            g.upper_neighbors[j] = un
-            g.upper_slot[j] = on_dev(upper_slot_new[i])
-            g.upper_node[j] = on_dev(upper_node_new[i])
-            g.levels[j] = on_dev(levels_new[i])
-            g.entry_node[j] = int(entry_new[i])
-            g.max_level[j] = int(maxlv_new[i])
-            g.upper_count[j] = int(ucount_new[i])
+            v["vectors"].copy_(v["vectors"][p] * live[:, None])
+            v["vec_sq"].copy_(v["vec_sq"][p] * live)
+            v["valid"].copy_(live)
+            v["neighbors0"].copy_(nb0)
+            v["upper_neighbors"].copy_(un)
+            v["upper_slot"].copy_(on_dev(upper_slot_new[i]))
+            v["upper_node"].copy_(on_dev(upper_node_new[i]))
+            v["levels"].copy_(on_dev(levels_new[i]))
+            v["entry_node"].fill_(int(entry_new[i]))
+            v["max_level"].fill_(int(maxlv_new[i]))
+            v["upper_count"].fill_(int(ucount_new[i]))
         self._keys = keys_new
         self._invalidate()
 
     # -- search -------------------------------------------------------------
     def _nbr_budget_ok(self) -> bool:
-        """Every shard of this process shares one device, so the int8
-        tables are summed over them against the budget (the JAX
-        package's accounting for shards that share one memory)."""
-        m0 = self.graph.neighbors0.shape[2]
-        per_shard = self.cap * m0 * self.d_pad  # int8
-        return per_shard * len(self.mesh.shards) <= self.nbr_budget_bytes
+        """The int8 tables of the shards each device holds, replicas
+        included, are summed against the budget, and every device must
+        pass (the JAX package's accounting for shards that share one
+        memory)."""
+        per_shard = self.cap * self.config.m0 * self.d_pad  # int8
+        on: dict = {}
+        for g in self.groups:
+            on[g.device] = on.get(g.device, 0) + len(g.shards)
+        return all(per_shard * n <= self.nbr_budget_bytes
+                   for n in on.values())
 
     def _use_nbr(self) -> bool:
-        """The int8 neighborhood layout: forced, or by default on a CUDA
-        device within the budget (the JAX package's non-CPU gate)."""
+        """The int8 neighborhood layout: forced, or by default on CUDA
+        devices within the budget (the JAX package's non-CPU gate)."""
         return self.layout == "neighborhood" or (
-            self.layout == "auto" and self.device.type == "cuda"
+            self.layout == "auto"
+            and all(g.device.type == "cuda" for g in self.groups)
             and self._nbr_budget_ok())
 
-    def _nbr_tables(self, j: int):
-        """(nbr_vecs, nbr_scale, nbr_sq, nbr_meta) of local shard j."""
-        nb0 = self.graph.neighbors0[j]
-        nv, sc, sq = make_neighborhood_tables(self._vectors[j],
-                                              self._vec_sq[j], nb0)
-        return nv, sc, sq, pack_meta(nb0, sc, sq)
-
-    def _tables(self):
-        """Per-shard search tables, built once per mutation and cached:
-        (upper tables, neighborhood tables or None, traversal copy or
-        None)."""
-        n_loc = len(self.mesh.shards)
-        if self._upper_cache is None:
-            g = self.graph
-            self._upper_cache = [
-                upper_table(g.upper_node[j], g.upper_count[j],
-                            self._vectors[j], self._vec_sq[j])
-                for j in range(n_loc)]
+    def _tables(self) -> bool:
+        """Build each group's search tables once per mutation, on its
+        device: the upper tables, and the int8 neighborhood tables or
+        the bf16 traversal copy. Returns whether the int8 layout is in
+        use."""
         use_nbr = self._use_nbr()
-        if use_nbr and self._nbr_cache is None:
-            self._nbr_cache = [self._nbr_tables(j) for j in range(n_loc)]
-        if not use_nbr and self._trav_cache is None:
-            self._trav_cache = (self._vectors if self._dtype == torch.bfloat16
-                                else self._vectors.to(torch.bfloat16))
-        return (self._upper_cache, self._nbr_cache if use_nbr else None,
-                None if use_nbr else self._trav_cache)
+        for g in self.groups:
+            t, n = g.t, len(g.shards)
+            if g.upper is None:
+                g.upper = [upper_table(t["upper_node"][p],
+                                       t["upper_count"][p], t["vectors"][p],
+                                       t["vec_sq"][p]) for p in range(n)]
+            if use_nbr and g.nbr is None:
+                g.nbr = []
+                for p in range(n):
+                    nb0 = t["neighbors0"][p]
+                    nv, sc, sq = make_neighborhood_tables(
+                        t["vectors"][p], t["vec_sq"][p], nb0)
+                    g.nbr.append((nv, sc, sq, pack_meta(nb0, sc, sq)))
+            if not use_nbr and g.trav is None:
+                g.trav = (t["vectors"] if self._dtype == torch.bfloat16
+                          else t["vectors"].to(torch.bfloat16))
+        return use_nbr
+
+    def _shard_args(self, row: int, j: int, use_nbr: bool):
+        """search_graph's inputs for local shard j of replica ``row``, on
+        its device: (state, vectors, vec_sq, valid, keywords for the mxu
+        descent and the int8 layout with K1, or the traversal copy).
+        ``_tables`` must have run."""
+        g, p = self._where[(row, j)]
+        uv, uvsq, unode = g.upper[p]
+        kw = dict(descent="mxu", upper_vecs=uv, upper_vec_sq=uvsq,
+                  upper_nodes=unode)
+        if use_nbr:
+            nv, nsc, nsq, nmeta = g.nbr[p]
+            kw.update(nbr_vecs=nv, nbr_scale=nsc, nbr_sq=nsq,
+                      nbr_meta=nmeta, pallas_beam=True)
+        else:
+            kw.update(traversal_vectors=g.trav[p])
+        return (self._state(j, row), *self._store(j, row), kw)
 
     def search(self, queries: np.ndarray, k: int, ef: int | None = None,
                expand: int = 4, chunk: int = 8192,
                ef_local: int | None = None):
-        """Top-k over every shard, one merge per batch. Queries are cut
-        into chunks of ``chunk`` rows on the host; each shard searches
-        each chunk (search_graph with the mxu descent; kernel K1 on the
-        int8 layout), and every chunk's results are merged at once.
+        """Top-k over every shard. Queries are cut into chunks of
+        ``chunk`` rows on the host, each split over the replica rows;
+        each shard searches its row's block on its slot's stream
+        (search_graph with the mxu descent; kernel K1 on the int8
+        layout), and each row's results are merged on the row's first
+        device (_grid_search).
 
         Each shard searches at ``ef_local_policy(ef, k, S, ef_local)``:
         by default min(ef, max(k+6, ceil(ef/S)+6)), rounded up to 16,
@@ -749,46 +1004,27 @@ class ShardedHNSWIndex:
         queries = np.asarray(queries, np.float32)
         if queries.ndim == 1:
             queries = queries[None]
-        b = queries.shape[0]
-        q_mult = max(8, self.mesh.shape["q"])
-        chunk = round_up(max(int(chunk), q_mult), q_mult)
         ef_eff = ef_local_policy(ef or self.config.ef_search, int(k),
                                  self.n_shards, ef_local)
-        upper, nbr, trav = self._tables()
-        outs_s, outs_g = [], []
-        for q, n_rows in _query_chunks(queries, chunk, q_mult, self.d_pad,
-                                       self.device):
-            chunk_s, chunk_g = [], []
-            for j, i in self._local():
-                uv, uvsq, unode = upper[j]
-                kw = dict(descent="mxu", upper_vecs=uv, upper_vec_sq=uvsq,
-                          upper_nodes=unode, expand=expand)
-                if nbr is not None:
-                    nv, nsc, nsq, nmeta = nbr[j]
-                    kw.update(nbr_vecs=nv, nbr_scale=nsc, nbr_sq=nsq,
-                              nbr_meta=nmeta, pallas_beam=True)
-                else:
-                    kw.update(traversal_vectors=trav[j])
-                scores, slots, _ = search_graph(
-                    self._state(j), self._vectors[j], self._vec_sq[j],
-                    self._valid[j], q, int(k), ef_eff, self.config.metric,
-                    **kw)
-                chunk_s.append(scores[:n_rows])
-                chunk_g.append(torch.where(
-                    slots[:n_rows] >= 0, i * self.cap + slots[:n_rows].long(),
-                    -1))
-            outs_s.append(torch.stack(chunk_s))
-            outs_g.append(torch.stack(chunk_g))
-        if not outs_s:
-            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int64))
-        scores, gids = _merge(self.mesh, torch.cat(outs_s, 1),
-                              torch.cat(outs_g, 1), int(k))
+        use_nbr = self._tables()
+        start, cap, metric = self.mesh.shards.start, self.cap, \
+            self.config.metric
+
+        def run(row, j, q):
+            st, vectors, vec_sq, valid, kw = self._shard_args(row, j, use_nbr)
+            scores, slots, _ = search_graph(st, vectors, vec_sq, valid, q,
+                                            int(k), ef_eff, metric,
+                                            expand=expand, **kw)
+            return scores, torch.where(slots >= 0,
+                                       (start + j) * cap + slots.long(), -1)
+
+        scores, gids = _grid_search(self, queries, chunk, int(k), run)
         return scores, _keys_of(self._keys, gids)
 
     # -- introspection / persistence ----------------------------------------
     def stats(self) -> dict:
-        levels = gather_shards(self.mesh, self.graph.levels).numpy()
-        valid = gather_shards(self.mesh, self._valid).numpy()
+        levels = self._gather("levels").numpy()
+        valid = self._gather("valid").numpy()
         per = [{"count": int(valid[i].sum()),
                 "max_level": int(levels[i].max()),
                 "capacity": self.cap} for i in range(self.n_shards)]
@@ -798,9 +1034,10 @@ class ShardedHNSWIndex:
 
     def save(self, path: str) -> None:
         """Whole-index serialization of the stacked shard arrays through
-        the native container, byte for byte the JAX package's file.
-        Under a process group every rank gathers the arrays
-        (sharded_to_arrays), rank 0 alone writes, and a barrier follows."""
+        the native container, byte for byte the JAX package's file,
+        whatever the grid. Under a process group every rank gathers the
+        arrays (sharded_to_arrays), rank 0 alone writes, and a barrier
+        follows."""
         lib = PS.get_lib()
         if lib is None:
             raise PS.PersistError("native vss_store library unavailable")
@@ -817,7 +1054,7 @@ class ShardedHNSWIndex:
         hdr.entry_node = 0
         hdr.count = len(self)
         hdr.capacity = self.cap
-        hdr.cap_upper = self.graph.upper_neighbors.shape[1]
+        hdr.cap_upper = self._cap_u()
         hdr.upper_count = 0
         hdr.reserved[0] = s
         hdr.reserved[1] = self.placement.v
@@ -849,10 +1086,10 @@ class ShardedHNSWIndex:
 
     @classmethod
     def load(cls, path: str, mesh: Mesh) -> "ShardedHNSWIndex":
-        """Every rank reads the file and keeps its own shards
-        (sharded_from_arrays). Norms are summed by numpy from the stored
-        rows, as ``add`` sums them, so a reloaded index searches bit for
-        bit as the saved one."""
+        """Every rank reads the file and keeps its own shards, laid over
+        its grid (sharded_from_arrays). Norms are summed by numpy from the
+        stored rows, as ``add`` sums them, so a reloaded index searches
+        bit for bit as the saved one."""
         lib = PS.get_lib()
         if lib is None:
             raise PS.PersistError("native vss_store library unavailable")
@@ -910,14 +1147,13 @@ class ShardedHNSWIndex:
 
     def _set_shard_arrays(self, vectors: np.ndarray, valid: np.ndarray,
                           graph: dict, vec_sq: np.ndarray | None = None):
-        """Fill this rank's shards from [S, ...] host arrays: the store
-        (a bf16 store as any 2-byte bits), the valid flags and the
-        ShardedGraph fields. Without ``vec_sq`` the norms are summed by
-        numpy from the rows as stored."""
+        """Fill this rank's shards in row 0 from [S, ...] host arrays,
+        then copy them to the replicas: the store (a bf16 store as any
+        2-byte bits), the valid flags and the ShardedGraph fields.
+        Without ``vec_sq`` the norms are summed by numpy from the rows as
+        stored."""
         sl = slice(self.mesh.shards.start, self.mesh.shards.stop)
-        dev = self.device
-        vectors = np.ascontiguousarray(vectors[sl])
-        self._vectors = device_tensor(vectors, self._dtype, dev)
+        vectors = vectors[sl]
         if vec_sq is None:
             stored = ((vectors.view(np.uint16).astype(np.uint32) << 16)
                       .view(np.float32) if self._dtype == torch.bfloat16
@@ -925,10 +1161,15 @@ class ShardedHNSWIndex:
             vec_sq = np.stack([row_sq_norms(r) for r in stored])
         else:
             vec_sq = vec_sq[sl]
-        self._vec_sq = device_tensor(vec_sq, torch.float32, dev)
-        self._valid = device_tensor(valid[sl], torch.bool, dev)
-        self.graph = ShardedGraph(**{
-            f: device_tensor(graph[f][sl], torch.int32, dev)
-            for f in ShardedGraph._fields})
+        host = {"vectors": (vectors, self._dtype),
+                "vec_sq": (vec_sq, torch.float32),
+                "valid": (valid[sl], torch.bool),
+                **{f: (graph[f][sl], torch.int32) for f in GRAPH_FIELDS}}
+        for g in self.groups:
+            if g.row == 0:
+                pick = list(g.shards)
+                g.t = {name: device_tensor(np.ascontiguousarray(arr[pick]),
+                                           dtype, g.device)
+                       for name, (arr, dtype) in host.items()}
         self._invalidate()
         self.is_dirty = False

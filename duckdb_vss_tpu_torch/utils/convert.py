@@ -19,7 +19,9 @@ is its inverse.
 
 ``sharded_from_arrays`` and ``sharded_to_arrays`` do the same for a
 ShardedHNSWIndex: the stacked [S, ...] store and graph, the key,
-free-list and next-slot state, and the placement.
+free-list and next-slot state, and the placement. The arrays are the
+same whatever the index's grid of devices, so a state carried in or out
+fits any mesh of as many shards.
 """
 
 from __future__ import annotations
@@ -150,25 +152,24 @@ def sharded_from_arrays(arrays: dict, config: HNSWConfig, mesh,
 
 def sharded_to_arrays(index) -> dict:
     """The arrays sharded_from_arrays takes, as numpy over all S shards
-    (a bf16 store as uint16 bits); a collective under a process group."""
-    from duckdb_vss_tpu_torch.parallel.sharded import gather_shards
-
-    def fetch(t):
-        return host_array(gather_shards(index.mesh, t))
+    (a bf16 store as uint16 bits), whatever the index's grid; a
+    collective under a process group."""
+    def fetch(name):
+        return host_array(index._gather(name))
 
     out = {
         "dims": np.int64(index.dims),
-        "_vectors": fetch(index._vectors),
-        "_vec_sq": fetch(index._vec_sq),
-        "_valid": fetch(index._valid),
+        "_vectors": fetch("vectors"),
+        "_vec_sq": fetch("vec_sq"),
+        "_valid": fetch("valid"),
         "_keys": index._keys.copy(),
         "_next_slot": index._next_slot.copy(),
         "_free_slots": [np.asarray(f, np.int64) for f in index._free_slots],
         "pl_assign": index.placement.assign.copy(),
         "pl_load": index.placement.load.copy(),
     }
-    for f, t in zip(index.graph._fields, index.graph):
-        out[f] = fetch(t)
+    for f in GRAPH_FIELDS:
+        out[f] = fetch(f)
     return out
 
 
