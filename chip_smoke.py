@@ -14,8 +14,9 @@ the augmented table, cluster, join and the stashed flat scan on that
 index (phase 8 below). Path 4: the SQL layer, a disk-backed Database on
 the card driven through db.execute (phase 9 below). Path 5: the
 sharded index (parallel/sharded.py), four shards of the same rows on
-the one card, in one process, on a grid of card slots, and in two
-processes (phase 10 below). Path 6: the entry module (entry.py):
+the one card, in one process, on a grid of card slots, in P NCCL
+processes (one card a rank, the collectives on the cards) and in two
+gloo processes (phase 10 below). Path 6: the entry module (entry.py):
 entry()'s search step, the same step over the index of path 1, and
 dryrun_multichip on 2 and 4 shards and on grids of 4 and 8 card slots
 (phase 4c below). The
@@ -144,7 +145,22 @@ Phases (any failure raises and exits non-zero):
      after (b)'s steps byte-equal to (a)'s; its ms per 8,192-query
      search beside (a)'s, the host syncs of one search, under
      torch.profiler how much the shards' kernels overlap, and the
-     device memory of one search beside (a)'s; (c) this
+     device memory of one search beside (a)'s; (e) this script again
+     in P processes (--sharded-rank R --backend nccl), one
+     "cpu:gloo,cuda:nccl" group, rank r on cuda:r with its block of the
+     4 shards, every cross-rank value gathered on the cards (P = 4 on
+     four cards or more, 2 on two or three, 1 on one card, where the log
+     says that four ranks did not run): (a)'s and (b)'s lifecycle and a
+     ShardedFlatIndex on every rank, whose keys and scores must equal
+     (a)'s at ef_local 32 and 64, (b)'s after compact and a one-process
+     ShardedFlatIndex's on this card, bit for bit; rank 0's file
+     byte-equal to (a)'s; K1 S_local times a chunk on every rank and
+     equal to its plain version on each rank's first shard; rank 0's ms
+     a search beside (a)'s and (d)'s, its host syncs (the queries'
+     upload once a chunk before its first K1 launch and gather, the
+     results' two downloads a chunk after its last, none between), and
+     under torch.profiler its card's busy time without NCCL's kernels,
+     the NCCL all-gather calls (and kernels, on more than one card); (c) this
      script again in two processes (--sharded-rank), a gloo group on the
      one card, two shards each, the same rows from --seed: both ranks
      return the same keys and scores, and rank 0's file loaded here
@@ -158,7 +174,8 @@ Phases (any failure raises and exits non-zero):
 The line before the last is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Run from the repository
 root: python3 chip_smoke.py. On a machine with several cards, path 5
-(d) and path 6 (c) lay their slots over the cards (card_slots).
+(d) and path 6 (c) lay their slots over the cards (card_slots) and path
+5 (e) runs a rank a card.
 """
 
 from __future__ import annotations
@@ -184,6 +201,7 @@ TIMED_B = 8192  # search_device's timed batch and the kernels' timed shape
 N_INSERT = 16_384  # rows added incrementally: 64 batches of 256
 MIN_SELF_RECALL = 0.99  # an inserted row is its own nearest neighbor
 GATHER_TOL = 1e-4  # K2 vs plain, relative to the scores' scale
+RANK_TIMEOUT_S = 300  # a path 5 (e) rank's limit on each collective
 # the first 8 bytes of a native index file (VSS_MAGIC, native/vss_store.cpp)
 NATIVE_MAGIC = (0x30315550_54535356).to_bytes(8, "little")
 
@@ -1475,11 +1493,12 @@ def trace_names(log_dir):
     return names, kernels
 
 
-def host_syncs(fn):
+def host_syncs(fn, phase=None):
     """Run fn under torch.cuda's sync debug mode and return where a
     synchronizing CUDA call was made: {"file:line": count}, a line inside
     torch followed by the innermost line of this checkout that reached
-    it."""
+    it; with ``phase``, each key starts with what phase() returns at the
+    sync ("<phase>: file:line")."""
     import collections
     import traceback
     import warnings
@@ -1505,6 +1524,8 @@ def host_syncs(fn):
                     if f.filename.startswith(here)]
             if mine:
                 at += " via " + where(mine[-1].filename, mine[-1].lineno)
+        if phase is not None:
+            at = f"{phase()}: {at}"
         seen[at] += 1
 
     torch.cuda.synchronize()
@@ -1532,23 +1553,34 @@ def shard_overlap(fn, tmp_dir):
     each shard stream the host's window of the launches of its kernels
     (``host_issue_ms``) beside the window in which they ran
     (``device_run_ms``), both from the first shard kernel's launch, in
-    ms."""
+    ms; and the call's wall (host clock, the cards synchronized, the
+    profiler's cost included), the union of all kernels' spans over it
+    and the same without NCCL's kernels (which also wait there for the
+    other ranks), NCCL's kernels and the host's collective calls
+    (overlap_of)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     path = os.path.join(tmp_dir, "overlap.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
-        return overlap_of(json.load(f)["traceEvents"])
+        return overlap_of(json.load(f)["traceEvents"], wall_ms)
 
 
-def overlap_of(events):
-    """shard_overlap's figures from a trace's events."""
+def overlap_of(events, host_wall_ms):
+    """shard_overlap's figures from a trace's events and the call's wall
+    (``host_wall_ms``). ``busy_ms`` is the union of every kernel's span,
+    ``busy_but_nccl_ms`` that of the kernels without "nccl" in their
+    names, each also as a share of the wall; ``nccl_*`` are NCCL's
+    kernels (a one-rank group launches none) and ``collective_calls``
+    the host's operators named with "nccl" or "allgather", by count."""
     kern = [e for e in events if e.get("cat") == "kernel"]
     for e in kern:
         args = e.get("args", {})
@@ -1599,6 +1631,33 @@ def overlap_of(events):
                               - t0) / 1e3] for st in streams]
     out["merge_busy_ms"] = sum(e["dur"] for e in kern
                                if e["stream"] not in k1_streams) / 1e3
+
+    def union_ms(evs):
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in evs):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        return busy / 1e3
+
+    nccl = [e for e in kern if "nccl" in e.get("name", "").lower()]
+    rest = [e for e in kern if "nccl" not in e.get("name", "").lower()]
+    out["host_wall_ms"] = host_wall_ms
+    out["busy_ms"] = union_ms(kern)
+    out["busy_share"] = out["busy_ms"] / host_wall_ms
+    out["busy_but_nccl_ms"] = union_ms(rest)
+    out["busy_but_nccl_share"] = out["busy_but_nccl_ms"] / host_wall_ms
+    out["nccl_kernels"] = len(nccl)
+    out["nccl_ms"] = sum(e["dur"] for e in nccl) / 1e3
+    out["nccl_names"] = sorted({e["name"] for e in nccl})
+    calls = {}
+    for e in events:
+        name = e.get("name", "")
+        low = name.lower().replace("_", "")
+        if e.get("cat") in ("cpu_op", "user_annotation") and (
+                "nccl" in low or "allgather" in low):
+            calls[name] = calls.get(name, 0) + 1
+    out["collective_calls"] = calls
     copies = {}
     for e in events:
         if e.get("cat") == "gpu_memcpy":
@@ -1617,9 +1676,10 @@ def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
     at ef_local=64 (K1 once per shard per chunk), under tracing.trace;
     (b) remove, isolate, compact, stats, save and load; (d) the same
     rows in a grid of one card slot a shard (path5_grid), equal to (a)
-    bit for bit; (c) two processes on the card in a gloo group, 2 shards
-    each, and rank 0's file loaded here. Raises on any failed check;
-    returns what it measured and the loaded index of (c)."""
+    bit for bit; (e) NCCL ranks, one card each (path5_nccl); (c) two
+    processes on the card in a gloo group, 2 shards each, and rank 0's
+    file loaded here. Raises on any failed check; returns what it
+    measured and the loaded index of (c)."""
     import numpy as np
     import torch
 
@@ -1760,6 +1820,12 @@ def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
                                  grid.pop("peak_before_gib"))
     out.update(grid)
 
+    # (e) NCCL ranks, one card a rank, the collectives on the cards
+    out.update(path5_nccl(dev, vecs, q, smi, seed, n_shards, cap, n_chunks,
+                          dict(k_def=k_def, s_def=s_def, k64=k64, s64=s64,
+                               k_c=k_c, s_c=s_c, digest=digest_a,
+                               ms=out["search_ms"], d_ms=out["d_ms"])))
+
     # (c) two processes on the card, two shards each
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         ranks, out["ranks_s"] = run_ranks(tmp, seed)
@@ -1879,33 +1945,159 @@ def path5_grid(dev, vecs, q, smi, n_shards, cap, n_chunks, dead, a, k=K):
     return out
 
 
-def run_ranks(out_dir, seed, world=2, timeout_s=600):
+def path5_nccl(dev, vecs, q, smi, seed, n_shards, cap, n_chunks, a, k=K):
+    """Path 5 (e): P processes in one "cpu:gloo,cuda:nccl" group, rank r
+    on cuda:r with its block of the 4 shards, every cross-rank value
+    gathered on the cards (nccl_rank). P is 4 on four cards or more, 2
+    on two or three, 1 on one card, where the one rank still gathers
+    through NCCL. Each rank's keys and scores must equal (a)'s (``a``)
+    bit for bit at ef_local 32 and 64 and after remove, isolate and
+    compact; rank 0's file must be byte-equal to (a)'s; each rank's
+    sharded flat top-k must equal a one-process ShardedFlatIndex's on
+    this card; K1 must launch S_local times a chunk on every rank, and
+    equal its plain version on each rank's first shard (the rank
+    checks). Rank 0's search may sync the host only for the queries'
+    upload, before its first K1 launch and gather, and for the results'
+    downloads, after its last. Prints rank 0's ms a search beside (a)'s
+    and (d)'s, its card's busy time without NCCL's kernels and NCCL's
+    kernels under torch.profiler, its host syncs, the first collective's
+    seconds and each rank's build. Returns what it measured."""
+    import numpy as np
+    import torch
+
+    from duckdb_vss_tpu_torch import MetricKind
+    from duckdb_vss_tpu_torch.parallel.sharded import (ShardedFlatIndex,
+                                                       make_mesh)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    n_cards = torch.cuda.device_count()
+    world = 4 if n_cards >= 4 else 2 if n_cards >= 2 else 1
+    s_local = n_shards // world
+    flat = ShardedFlatIndex(vecs.shape[1], MetricKind.L2SQ,
+                            make_mesh(n_shards, device=dev),
+                            capacity_per_shard=cap)
+    flat.add(vecs, np.arange(len(vecs)))
+    flat_s, flat_k = flat.search(q, k)
+    del flat
+    torch.cuda.empty_cache()
+    if world < 4:
+        log(f"# path 5 (e) on {smi}: four NCCL ranks need four cards; this "
+            f"machine has {n_cards}, so four ranks did not run: {world} "
+            f"rank(s) run, one card each, through NCCL all the same")
+    with tempfile.TemporaryDirectory(dir=os.path.join(here, "build")) as tmp:
+        ranks, secs = run_ranks(tmp, seed, world=world, backend="nccl")
+        got = []
+        for r in range(world):
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+                got.append(dict(z))
+        with open(os.path.join(tmp, "sharded.vss"), "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+    r0 = ranks[0]
+    diff = [{name: int((g[name] != want).sum()) for name, want in (
+        ("k_def", a["k_def"]), ("s_def", a["s_def"]), ("k64", a["k64"]),
+        ("s64", a["s64"]), ("k_c", a["k_c"]), ("s_c", a["s_c"]),
+        ("flat_k", flat_k), ("flat_s", flat_s))} for g in got]
+    log(f"# path 5 (e) on {smi}: {world} NCCL rank(s) (backend "
+        f"{r0['backend']}), cards {[r['card'] for r in ranks]}, "
+        f"{s_local} shard(s) a rank, {secs:.1f} s; init_process_group "
+        f"{[round(r['init_s'], 3) for r in ranks]} s, the first collective "
+        f"{[round(r['first_collective_s'], 3) for r in ranks]} s; build "
+        f"{[round(r['build_s'], 2) for r in ranks]} s; K1 launches per "
+        f"search per rank {[r['k1_launches'] for r in ranks]} (want "
+        f"{s_local} x {n_chunks}); values differing from (a), (b) and the "
+        f"one-process sharded flat scan, per rank {diff}; rank 0's file "
+        f"sha256 {digest[:16]}, (a)'s {a['digest'][:16]}")
+    log(f"# path 5 (e) on {smi}: rank 0 {r0['ms']:.2f} ms per search of "
+        f"{TIMED_B} queries against (a)'s {a['ms']:.2f} and (d)'s "
+        f"{a['d_ms']:.2f} (host arrays in and out, CUDA events); under "
+        f"torch.profiler " + json.dumps(r0["profile"]) + "; host syncs in "
+        f"one search {r0['host_syncs']}")
+    for r, (rank, d) in enumerate(zip(ranks, diff)):
+        check(all(v == 0 for v in d.values()),
+              f"(e): rank {r}'s results differ from (a), (b) or the "
+              f"one-process sharded flat scan: {d}")
+        check(all(n == s_local * n_chunks for n in rank["k1_launches"]),
+              f"(e): rank {r} launched K1 {rank['k1_launches']} times a "
+              f"search, not {s_local} x {n_chunks}")
+        check(rank["plain_calls"] == 0, f"(e): rank {r} ran K1's plain "
+              "version in a search")
+    check(digest == a["digest"], "(e): rank 0's file differs from (a)'s")
+    # the only host syncs of a search: the queries' upload, once a chunk
+    # before any K1 launch or gather, and the scores' and ids' downloads,
+    # once a chunk each after the last (a rank's grid is one row on one
+    # card); the merge's two gathers a chunk
+    chunks = r0["per_search"][0] // s_local
+    by_phase = {}
+    for at, n in r0["host_syncs"].items():
+        by_phase[at.split(":")[0]] = by_phase.get(at.split(":")[0], 0) + n
+    check(r0["per_search"] == [s_local * chunks, 2 * chunks]
+          and by_phase == {"before": chunks, "after": 2 * chunks},
+          f"(e): rank 0's search ran K1 and the gathers "
+          f"{r0['per_search']} times and synced the host "
+          f"{r0['host_syncs']}; want {s_local * chunks} and {2 * chunks}, "
+          f"{chunks} sync(s) before them (the upload) and {2 * chunks} "
+          "after (the downloads), none between")
+    # the merge's two all-gathers ran through NCCL: on more than one
+    # card as NCCL's all-gather kernels (with one rank NCCL copies)
+    check(sum(n for name, n in r0["profile"]["collective_calls"].items()
+              if "nccl" in name.lower()
+              and "allgather" in name.lower().replace("_", "")) >= 2,
+          "(e): rank 0's profile shows no NCCL all-gather call: "
+          + json.dumps(r0["profile"]["collective_calls"]))
+    if world > 1:
+        check(any("allgather" in name.lower()
+                  for name in r0["profile"]["nccl_names"]),
+              "(e): no NCCL all-gather kernel in rank 0's profile")
+    return {"e_ranks": world, "e_s": secs, "e_ms": r0["ms"],
+            "e_busy_but_nccl_ms": r0["profile"]["busy_but_nccl_ms"],
+            "e_busy_but_nccl_share": r0["profile"]["busy_but_nccl_share"],
+            "e_nccl_ms": r0["profile"]["nccl_ms"],
+            "e_first_collective_s": r0["first_collective_s"],
+            "e_k1_err": max(r["k1_err"] for r in ranks),
+            "e_k1_launches": [r["k1_total"] for r in ranks],
+            "e_k2_launches": [r["k2_total"] for r in ranks]}
+
+
+def run_ranks(out_dir, seed, world=2, backend="gloo", timeout_s=600):
     """Start this script's --sharded-rank mode in ``world`` fresh
-    processes on the card, wait for them and return (their results,
-    seconds). Every process is stopped before this returns."""
+    processes (rank r on cuda:r under NCCL, all on the current card
+    under gloo), wait for them and return (their results, seconds).
+    The first rank to fail or the time limit stops every process; every
+    process is stopped before this returns."""
     import socket
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
+    part = "(e)" if backend == "nccl" else "(c)"
     cmd = [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
-           "--world", str(world), "--port", str(port), "--out", out_dir]
+           "--world", str(world), "--port", str(port), "--out", out_dir,
+           "--backend", backend]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(cmd + ["--sharded-rank", str(r)],
-                              stdout=subprocess.PIPE,
+    logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(world)]
+    files = [open(path, "w") for path in logs]
+    procs = [subprocess.Popen(cmd + ["--sharded-rank", str(r)], stdout=f,
                               stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
+             for r, f in enumerate(files)]
     try:
-        logs = [p.communicate(timeout=timeout_s)[0] for p in procs]
+        while (any(p.poll() is None for p in procs)
+               and not any(p.returncode for p in procs)
+               and time.perf_counter() - t0 < timeout_s):
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        for f in files:
+            f.close()
     secs = time.perf_counter() - t0
-    for r, (p, text) in enumerate(zip(procs, logs)):
+    for r, (p, path) in enumerate(zip(procs, logs)):
+        with open(path) as f:
+            text = f.read()
         check(p.returncode == 0,
-              f"(c): rank {r} exited {p.returncode}:\n{text[-4000:]}")
+              f"{part}: rank {r} exited {p.returncode} after {secs:.0f} s "
+              f"(limit {timeout_s} s):\n{text[-4000:]}")
     results = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -1917,7 +2109,8 @@ def sharded_rank(opts) -> int:
     """One rank of path 5 (c): the run's 1M rows from --seed, this rank's
     block of the 4 shards on cuda:0 (a gloo group over --world
     processes), the bulk build, one search of the queries, and the
-    sharded file (written by rank 0). Results go to --out."""
+    sharded file (written by rank 0). Results go to --out. With
+    --backend nccl, one rank of path 5 (e) (nccl_rank)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1926,6 +2119,8 @@ def sharded_rank(opts) -> int:
         print("chip_smoke: a rank needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if opts.backend == "nccl":
+        return nccl_rank(opts)
     from duckdb_vss_tpu_torch import HNSWConfig
     from duckdb_vss_tpu_torch.ops import fused_beam as fb
     from duckdb_vss_tpu_torch.parallel.sharded import (ShardedHNSWIndex,
@@ -1957,11 +2152,132 @@ def sharded_rank(opts) -> int:
     return 0
 
 
+def nccl_rank(opts) -> int:
+    """One rank of path 5 (e), on cuda:<rank> in a "cpu:gloo,cuda:nccl"
+    group over --world processes (a timeout of RANK_TIMEOUT_S on every
+    collective): the run's 1M rows from --seed, this rank's block of the
+    4 shards on its card, the bulk build, the queries at the default
+    ef_local and at 64, K1 against its plain version on its first
+    shard, the measurements (ms a search, host syncs, torch.profiler),
+    remove every tenth key, isolate, compact, a search at ef_local 64,
+    save (rank 0 writes), then a ShardedFlatIndex of the same rows
+    searched. Every rank makes the same calls in the same order, so the
+    collectives meet. Results go to --out."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from duckdb_vss_tpu_torch import HNSWConfig, MetricKind
+    from duckdb_vss_tpu_torch.ops import fused_beam as fb
+    from duckdb_vss_tpu_torch.ops import fused_gather as fg
+    from duckdb_vss_tpu_torch.parallel import sharded as tsh
+    from duckdb_vss_tpu_torch.utils.timing import device_time
+
+    r = opts.sharded_rank
+    torch.cuda.set_device(r)
+    card = torch.device("cuda", r)
+    out, res = {"card": str(card)}, {}
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "cpu:gloo,cuda:nccl", init_method=f"tcp://127.0.0.1:{opts.port}",
+        world_size=opts.world, rank=r, device_id=card,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    out["init_s"] = time.perf_counter() - t0
+    out["backend"] = str(dist.get_backend())
+    try:
+        vecs, _, q, _ = sift_like(opts.seed)
+        keys = np.arange(len(vecs), dtype=np.int64)
+        mesh = tsh.make_mesh(4, device=card)
+        check(mesh.collectives == "card",
+              f"rank {r}: the mesh gathers on the {mesh.collectives}")
+        _, out["first_collective_s"] = timed(card, lambda: (
+            tsh.all_gather_on_device(mesh, torch.zeros(1, device=card))))
+        sh = tsh.ShardedHNSWIndex(D, HNSWConfig(), mesh,
+                                  capacity_per_shard=262_144)
+        _, out["build_s"] = timed(card, lambda: sh.add(vecs, keys))
+        check(sh.cap == 262_144, f"rank {r}: the capacity grew to {sh.cap}")
+        sh.search(q[:64], K)  # builds the int8 layout
+        fb.fused_beam_search.launches = fb.beam_search_plain.calls = 0
+        fg.gather_scores_kernel.launches = 0
+        launches, plain = [], [0]
+
+        def counted(fn):
+            k1, p = fb.fused_beam_search.launches, fb.beam_search_plain.calls
+            got = fn()
+            launches.append(fb.fused_beam_search.launches - k1)
+            plain[0] += fb.beam_search_plain.calls - p
+            return got
+
+        res["s_def"], res["k_def"] = counted(lambda: sh.search(q, K))
+        res["s64"], res["k64"] = counted(
+            lambda: sh.search(q, K, ef_local=64))
+        n_main = fb.fused_beam_search.launches  # the check's launch aside
+        out["k1_err"] = compare_beam(
+            f"(e) rank {r}, shard {mesh.shards.start} on {card}, ef 32",
+            sharded_beam_inputs(sh, q[:1024], 32),
+            dict(ef=32, expand=4, m0=sh.config.m0, d=sh.d_pad,
+                 max_steps=16, metric=MetricKind.L2SQ))
+        fb.fused_beam_search.launches = n_main
+        qt = q[:TIMED_B]
+        out["ms"] = device_time(lambda: sh.search(qt, K), iters=5) * 1e3
+        # where a search's host syncs fall: before its first K1 launch
+        # and gather, after its last, or between (none may be)
+        gathers, real_gather = [0], dist.all_gather_into_tensor
+
+        def gather(*args, **kw):
+            gathers[0] += 1
+            return real_gather(*args, **kw)
+
+        dist.all_gather_into_tensor = gather
+        try:
+            k1 = fb.fused_beam_search.launches
+            sh.search(qt, K)
+            out["per_search"] = per = [fb.fused_beam_search.launches - k1,
+                                       gathers[0]]
+            k1, gathers[0] = fb.fused_beam_search.launches, 0
+
+            def phase():
+                now = [fb.fused_beam_search.launches - k1, gathers[0]]
+                return ("before" if now == [0, 0] else
+                        "after" if now == per else "between")
+
+            out["host_syncs"] = host_syncs(lambda: sh.search(qt, K), phase)
+        finally:
+            dist.all_gather_into_tensor = real_gather
+        with tempfile.TemporaryDirectory(dir=opts.out) as tb:
+            out["profile"] = shard_overlap(lambda: sh.search(qt, K), tb)
+        sh.remove(keys[::10])
+        sh.isolate()
+        sh.compact()
+        res["s_c"], res["k_c"] = counted(
+            lambda: sh.search(q, K, ef_local=64))
+        sh.save(os.path.join(opts.out, "sharded.vss"))
+        out["k1_launches"], out["plain_calls"] = launches, plain[0]
+        del sh
+        torch.cuda.empty_cache()
+        flat = tsh.ShardedFlatIndex(D, MetricKind.L2SQ, mesh,
+                                    capacity_per_shard=262_144)
+        flat.add(vecs, keys)
+        res["flat_s"], res["flat_k"] = flat.search(q, K)
+        out["k1_total"] = fb.fused_beam_search.launches
+        out["k2_total"] = fg.gather_scores_kernel.launches
+    finally:
+        dist.destroy_process_group()
+    np.savez(os.path.join(opts.out, f"rank{r}.npz"), **res)
+    with open(os.path.join(opts.out, f"rank{r}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1234)
-    # path 5 (c) starts this script again, once per rank, with these
+    # path 5 (c) and (e) start this script again, once per rank, with these
     ap.add_argument("--sharded-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
                     help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
@@ -2292,6 +2608,9 @@ def main(argv=None) -> int:
     # search_memory reset the peak counters inside path 5
     peak5_gb = max(p5.pop("peak_before_gib"),
                    torch.cuda.max_memory_allocated() / 2**30)
+    # each NCCL rank's launches in path 5 (e), counted in its process:
+    # their sum is the seventh path, each rank's in ..._by_rank
+    k1_ranks, k2_ranks = p5.pop("e_k1_launches"), p5.pop("e_k2_launches")
     log(f"# path 5 on {smi}: {time.perf_counter() - t0:.1f} s; K1 launches "
         f"{k1_launches_5}, plain version calls {fb.beam_search_plain.calls}"
         f"; K2 launches {k2_launches_5}; peak device memory "
@@ -2318,10 +2637,13 @@ def main(argv=None) -> int:
         "source": "duckdb_vss_tpu_torch/csrc/fused_beam.cu",
         "replaces": "duckdb_vss_tpu/ops/pallas_beam.py:133",
         "launches": (k1_launches + k1_launches_2 + k1_launches_3
-                     + k1_launches_4 + k1_launches_5 + k1_launches_6),
+                     + k1_launches_4 + k1_launches_5 + k1_launches_6
+                     + sum(k1_ranks)),
         "launches_by_path": [k1_launches, k1_launches_2, k1_launches_3,
-                             k1_launches_4, k1_launches_5, k1_launches_6],
-        "max_abs_err": max(err, err32),
+                             k1_launches_4, k1_launches_5, k1_launches_6,
+                             sum(k1_ranks)],
+        "launches_by_rank_5e": k1_ranks,
+        "max_abs_err": max(err, err32, p5["e_k1_err"]),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
@@ -2337,9 +2659,10 @@ def main(argv=None) -> int:
         "source": "duckdb_vss_tpu_torch/csrc/gather_scores.cu",
         "replaces": "duckdb_vss_tpu/ops/pallas_gather.py:40",
         "launches": (k2_launches + k2_launches_3 + k2_launches_4
-                     + k2_launches_5 + k2_launches_6),
+                     + k2_launches_5 + k2_launches_6 + sum(k2_ranks)),
         "launches_by_path": [0, k2_launches, k2_launches_3, k2_launches_4,
-                             k2_launches_5, k2_launches_6],
+                             k2_launches_5, k2_launches_6, sum(k2_ranks)],
+        "launches_by_rank_5e": k2_ranks,
         "max_abs_err": err2,
         "ms": k2_ms,
         "plain_ms": p2_ms,

@@ -23,18 +23,22 @@ the streams that made them (copies between cards run on the producing
 stream), where one shard-major concatenation is cut to the best k: the
 all-gather and top-k of the JAX package's shard_map.
 
-Under an initialized ``torch.distributed`` process group (gloo), P
-processes share the S shards: rank r owns the contiguous block
+Under an initialized ``torch.distributed`` process group, P processes
+share the S shards: rank r owns the contiguous block
 ``[r*S/P, (r+1)*S/P)``, as the JAX package's mesh orders devices over
 processes, and lays its own grid over it. Every rank calls every method
 with the same arguments, as the JAX package's SPMD workers do. Host
 state (keys, placement, free-lists, the level rng, compaction
 permutations) stays identical on every rank; device tensors hold only
-the rank's own shards. The few host values that span shards (the
-empty-graph test, compaction's inputs, stats, the search merge, save)
-are all-gathered on the CPU, since gloo takes no CUDA tensors. So a
-P-rank search returns the same keys and scores as a one-process search
-of the same graphs.
+the rank's own shards. The values that span shards (the empty-graph
+test, compaction's inputs, stats, the search merge, save) are
+all-gathered. A group whose backend carries CUDA tensors
+(``init_process_group("cpu:gloo,cuda:nccl", device_id=...)``, one card
+a rank) gathers CUDA tensors on the card, as the JAX package's
+``lax.all_gather`` and ``process_allgather`` do, and a host value is
+downloaded once after its gather; a group of the CPU alone (gloo)
+gathers on the host. So a P-rank search returns the same keys and
+scores as a one-process search of the same graphs.
 
 Of the JAX package's ``DVT_*`` settings, only the layout is a
 constructor keyword: K1 always runs on the int8 layout, there is no
@@ -101,14 +105,19 @@ class Mesh:
     S_local devices, row-major), slot (r, j) holds local shard j of
     replica r on ``devices[r * S_local + j]``; without it the grid is one
     slot that holds every local shard on ``device``, and ``shape["q"]``
-    only sets the query padding multiple, max(8, q)."""
+    only sets the query padding multiple, max(8, q). ``collectives`` is
+    None without a process group, "card" when the group's backend
+    carries CUDA tensors (they are then gathered on the card), else
+    "host"."""
 
     def __init__(self, n_shards: int, n_q: int,
                  device: torch.device | None = None, world_size: int = 1,
-                 rank: int = 0, devices: list | None = None):
+                 rank: int = 0, devices: list | None = None,
+                 collectives: str | None = None):
         self.shape = {"q": int(n_q), "shard": int(n_shards)}
         self.world_size = int(world_size)
         self.rank = int(rank)
+        self.collectives = collectives
         per = self.shape["shard"] // self.world_size
         self.shards = range(self.rank * per, (self.rank + 1) * per)
         if devices is None:
@@ -137,7 +146,8 @@ class Mesh:
     def __repr__(self) -> str:
         slots = [[str(s.device) for s in row] for row in self.grid]
         return (f"Mesh(shape={self.shape}, slots={slots}, rank "
-                f"{self.rank} of {self.world_size}, shards {self.shards})")
+                f"{self.rank} of {self.world_size}, shards {self.shards}, "
+                f"collectives {self.collectives})")
 
 
 def _slot_device(name) -> torch.device:
@@ -159,10 +169,15 @@ def make_mesh(n_shards: int | None = None, n_q: int = 1,
     S_local being S over the processes of an initialized
     torch.distributed group (each rank passes the list for its own block
     of shards). A name may repeat: ``["cuda:0"] * 4`` is four slots of
-    one card. With a process group, the world size must divide S."""
-    world, rank = 1, 0
+    one card. With a process group, the world size must divide S; under
+    a group whose backend carries CUDA tensors (``"cpu:gloo,cuda:nccl"``)
+    a rank's slots name one card at most (its own: ``device=f"cuda:{r}"``
+    or ``devices=[f"cuda:{r}"] * n``)."""
+    world, rank, collectives = 1, 0, None
     if dist.is_available() and dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
+        collectives = ("card" if _carries_cuda(str(dist.get_backend()))
+                       else "host")
     if devices is None:
         device = resolve_device(device)
         n_shards = int(n_shards or world)
@@ -172,7 +187,24 @@ def make_mesh(n_shards: int | None = None, n_q: int = 1,
     if n_shards < 1 or n_shards % world:
         raise ValueError(f"{world} processes cannot split {n_shards} shards "
                          "evenly")
-    return Mesh(n_shards, n_q, device, world, rank, devices=devices)
+    mesh = Mesh(n_shards, n_q, device, world, rank, devices=devices,
+                collectives=collectives)
+    cards = sorted({str(s.device) for row in mesh.grid for s in row
+                    if s.device.type == "cuda"})
+    if collectives == "card" and len(cards) > 1:
+        raise ValueError(
+            f"rank {rank}'s slots name {len(cards)} cards ({cards}); under "
+            "a process group that carries CUDA tensors each rank lays its "
+            "grid over one card")
+    return mesh
+
+
+def _carries_cuda(backend: str) -> bool:
+    """Whether a process group's backend string sends CUDA tensors to a
+    device backend: "nccl", or a device map such as
+    "cpu:gloo,cuda:nccl"."""
+    return backend == "nccl" or any(
+        part.strip().startswith("cuda:") for part in backend.split(","))
 
 
 def shard_keys(keys: np.ndarray, n_shards: int) -> np.ndarray:
@@ -233,22 +265,35 @@ class VirtualPlacement:
 # ---------------------------------------------------------------------------
 
 
+def all_gather_on_device(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
+    """The [S, ...] value of a tensor whose [S_local, ...] slices this
+    rank holds, on every rank, on ``local``'s device: one all-gather of
+    the group, in rank order (the JAX package's lax.all_gather over the
+    shard axis). Under a group that carries CUDA tensors, a CUDA tensor
+    is gathered on the card, in any dtype; the current stream waits for
+    the gather, the host does not."""
+    out = local.new_empty((mesh.world_size * local.shape[0],)
+                          + tuple(local.shape[1:]))
+    dist.all_gather_into_tensor(out, local.detach().contiguous())
+    return out
+
+
+def _gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """all_gather_on_device of ``t`` on its card under a group that
+    carries CUDA tensors, else of its host copy (gloo carries no CUDA
+    tensor)."""
+    on_card = mesh.collectives == "card" and t.is_cuda
+    return all_gather_on_device(mesh, t if on_card else t.detach().cpu())
+
+
 def gather_shards(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
     """The [S, ...] value of a tensor whose [S_local, ...] slices this
-    rank holds, on the CPU, on every rank (an all-gather under a process
-    group; gloo carries neither CUDA tensors, bool nor bf16, so those
-    cross as uint8 and int16 bits)."""
-    t = local.detach().cpu()
-    if mesh.world_size == 1:
-        return t
-    dtype = t.dtype
-    wire = (t.to(torch.uint8) if dtype == torch.bool
-            else t.view(torch.int16) if dtype == torch.bfloat16 else t)
-    parts = [torch.empty_like(wire) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, wire.contiguous())
-    out = torch.cat(parts)
-    return (out.to(torch.bool) if dtype == torch.bool
-            else out.view(torch.bfloat16) if dtype == torch.bfloat16 else out)
+    rank holds, on the CPU, on every rank: without a process group the
+    tensor itself, else gathered (_gather) and downloaded once (the JAX
+    package's process_allgather)."""
+    if mesh.collectives is None:
+        return local.detach().cpu()
+    return _gather(mesh, local).cpu()
 
 
 def _pow2(n: int) -> int:
@@ -283,14 +328,14 @@ def _store_rows(vectors, vec_sq, valid, slots: np.ndarray,
 def _merge(mesh: Mesh, scores: torch.Tensor, gids: torch.Tensor, k: int
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The distributed top-k merge: this rank's per-shard [S_local, B, k]
-    results, gathered to [S, B, k], concatenated shard-major to [B, S*k]
-    and cut to the best k on the device that holds them. Ties fall to
-    the lowest position, i.e. the lowest shard, as lax.top_k on the JAX
-    package's concatenation."""
-    if mesh.world_size > 1:
+    results, gathered to [S, B, k] (on the card under a group that
+    carries CUDA tensors, else through the host), concatenated
+    shard-major to [B, S*k] and cut to the best k on the device that
+    holds them. Ties fall to the lowest position, i.e. the lowest shard,
+    as lax.top_k on the JAX package's concatenation."""
+    if mesh.collectives:
         dev = scores.device
-        scores = gather_shards(mesh, scores).to(dev)
-        gids = gather_shards(mesh, gids).to(dev)
+        scores, gids = (_gather(mesh, x).to(dev) for x in (scores, gids))
     s, b, kk = scores.shape
     cat_s = scores.permute(1, 0, 2).reshape(b, s * kk)
     cat_g = gids.permute(1, 0, 2).reshape(b, s * kk)
@@ -1081,7 +1126,10 @@ class ShardedHNSWIndex(_ShardStore):
             finally:
                 lib.vss_writer_close(w)
         self.is_dirty = False
-        if self.mesh.world_size > 1:
+        if self.mesh.collectives == "card" and self.mesh.device.type == "cuda":
+            # on this rank's card, named: NCCL would otherwise guess one
+            dist.barrier(device_ids=[_slot_device(self.mesh.device).index])
+        elif self.mesh.collectives:
             dist.barrier()  # no rank runs ahead of the file
 
     @classmethod
