@@ -26,6 +26,7 @@ import torch
 
 from duckdb_vss_tpu_torch.models.graph import (L_MAX, GraphState, beam_search,
                                                gather_scores, mxu_descent)
+from duckdb_vss_tpu_torch.ops.distance import ieee_sqrt
 from duckdb_vss_tpu_torch.ops.topk import smallest_k
 from duckdb_vss_tpu_torch.utils.config import MetricKind
 from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
@@ -46,7 +47,7 @@ def _pairwise_scores(
     if metric == MetricKind.L2SQ:
         return torch.clamp_min(sq[:, :, None] - 2.0 * dot + sq[:, None, :], 0.0)
     if metric == MetricKind.COSINE:
-        denom = torch.sqrt(sq[:, :, None] * sq[:, None, :])
+        denom = ieee_sqrt(sq[:, :, None] * sq[:, None, :])
         score = 1.0 - dot / torch.clamp_min(denom, _EPS)
         zero_i = sq[:, :, None] <= 0.0
         zero_j = sq[:, None, :] <= 0.0

@@ -33,7 +33,8 @@ import torch
 from duckdb_vss_tpu_torch.models.build import _group_ranks, select_diverse
 from duckdb_vss_tpu_torch.models.graph import (L_MAX, UPPER_DIV, GraphState,
                                                gather_scores, make_graph)
-from duckdb_vss_tpu_torch.ops.distance import dot_scores, score_matrix
+from duckdb_vss_tpu_torch.ops.distance import (dot_scores, ieee_sqrt,
+                                                 score_matrix)
 from duckdb_vss_tpu_torch.ops.topk import flat_topk, smallest_k
 from duckdb_vss_tpu_torch.utils.config import HNSWConfig, MetricKind
 from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
@@ -307,7 +308,7 @@ def _refine_chunk(vectors_bf, vec_sq, knn_ids, sl, metric):
     elif metric == MetricKind.L2SQ:
         sc = torch.clamp_min(q_sq[:, None] - 2.0 * dot + c_sq, 0.0)
     else:  # cosine (zero-norm rows score 1, matching score_matrix)
-        denom = torch.sqrt(torch.clamp_min(q_sq[:, None] * c_sq, 1e-30))
+        denom = ieee_sqrt(torch.clamp_min(q_sq[:, None] * c_sq, 1e-30))
         sc = torch.where((q_sq[:, None] <= 0) | (c_sq <= 0), 1.0,
                          1.0 - dot / denom)
     sc = torch.where((c_sorted >= 0) & (sl[:, None] >= 0), sc, INF_SCORE)

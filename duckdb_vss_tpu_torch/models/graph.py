@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from duckdb_vss_tpu_torch.ops.distance import ieee_sqrt
 from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search, pack_meta
 from duckdb_vss_tpu_torch.ops.fused_gather import gather_scores_kernel
 from duckdb_vss_tpu_torch.ops.topk import flat_topk, smallest_k
@@ -158,7 +159,7 @@ def metric_epilogue(dot, v_sq, q_sq, metric: MetricKind) -> torch.Tensor:
     if metric == MetricKind.L2SQ:
         return torch.clamp_min(q_sq[:, None] - 2.0 * dot + v_sq, 0.0)
     if metric == MetricKind.COSINE:
-        denom = torch.sqrt(q_sq[:, None] * v_sq)
+        denom = ieee_sqrt(q_sq[:, None] * v_sq)
         score = 1.0 - dot / torch.clamp_min(denom, _EPS)
         score = torch.where((q_sq[:, None] <= 0.0) | (v_sq <= 0.0), 1.0, score)
         return torch.where((q_sq[:, None] <= 0.0) & (v_sq <= 0.0), 0.0, score)

@@ -24,6 +24,7 @@ exact row order of the brute-force projection.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from duckdb_vss_tpu_torch.utils.config import MetricKind
@@ -41,6 +42,17 @@ def dot_scores(queries: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:
     if queries.dtype != vectors.dtype:
         queries = queries.to(vectors.dtype)
     return queries.float() @ vectors.float().T
+
+
+def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Element-wise square root, correctly rounded (IEEE 754), as XLA's
+    and CUDA's are. On the CPU torch.sqrt is MKL's vsSqrt, which is
+    within one ulp only, and whose first call in a process, split over
+    threads, has returned about half of its elements from a 12-bit
+    estimate (relative error ~3e-4): the CPU takes numpy's sqrt."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))  # 0-d: a scalar
 
 
 def sq_norms(x: torch.Tensor) -> torch.Tensor:
@@ -72,7 +84,7 @@ def score_matrix(
     if metric == MetricKind.COSINE:
         q_zero = query_sq[:, None] <= 0.0
         v_zero = vec_sq[None, :] <= 0.0
-        denom = torch.sqrt(query_sq[:, None] * vec_sq[None, :])
+        denom = ieee_sqrt(query_sq[:, None] * vec_sq[None, :])
         score = 1.0 - dot / torch.clamp_min(denom, _EPS)
         # usearch zero-norm handling: both zero -> 0, exactly one zero -> 1
         score = torch.where(q_zero | v_zero, 1.0, score)
@@ -93,7 +105,7 @@ def pair_scores(a: torch.Tensor, b: torch.Tensor,
     if metric == MetricKind.COSINE:
         a2, b2 = (a * a).sum(-1), (b * b).sum(-1)
         a_zero, b_zero = a2 <= 0.0, b2 <= 0.0
-        score = 1.0 - dot / torch.clamp_min(torch.sqrt(a2 * b2), _EPS)
+        score = 1.0 - dot / torch.clamp_min(ieee_sqrt(a2 * b2), _EPS)
         score = torch.where(a_zero | b_zero, 1.0, score)
         return torch.where(a_zero & b_zero, 0.0, score)
     raise ValueError(f"unknown metric {metric}")
@@ -114,7 +126,7 @@ def _f32(x) -> torch.Tensor:
 def array_distance(a, b) -> torch.Tensor:
     """Euclidean distance (with sqrt), row-aligned [.., D] -> [..]."""
     diff = _f32(a) - _f32(b)
-    return torch.sqrt((diff * diff).sum(-1))
+    return ieee_sqrt((diff * diff).sum(-1))
 
 
 def array_inner_product(a, b) -> torch.Tensor:
@@ -128,7 +140,7 @@ def array_negative_inner_product(a, b) -> torch.Tensor:
 def array_cosine_similarity(a, b) -> torch.Tensor:
     a, b = _f32(a), _f32(b)
     dot = (a * b).sum(-1)
-    denom = torch.sqrt((a * a).sum(-1) * (b * b).sum(-1))
+    denom = ieee_sqrt((a * a).sum(-1) * (b * b).sum(-1))
     return dot / torch.clamp_min(denom, _EPS)
 
 
@@ -161,7 +173,7 @@ def metric_score_to_function_value(score: torch.Tensor,
     """An index-metric score as the value of the SQL function that orders
     by it (the projected distance column, without re-gathering rows)."""
     if metric == MetricKind.L2SQ:
-        return torch.sqrt(torch.clamp_min(score, 0.0))  # array_distance
+        return ieee_sqrt(torch.clamp_min(score, 0.0))  # array_distance
     if metric == MetricKind.COSINE:
         return score  # array_cosine_distance == the cosine metric score
     if metric == MetricKind.IP:

@@ -36,6 +36,7 @@ import torch
 from duckdb_vss_tpu_torch.ops import cuda_build
 from duckdb_vss_tpu_torch.ops.cuda_build import (MAX_SMEM_BYTES, METRIC_CODE,
                                                 check_tensor)
+from duckdb_vss_tpu_torch.ops.distance import ieee_sqrt
 from duckdb_vss_tpu_torch.utils.config import MetricKind
 from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
 
@@ -172,7 +173,7 @@ def plain_step(beam_s, beam_i, beam_e, q_bf, q_sq, nbr_tbl, scale_tbl, sq_tbl,
     else:
         qz = q_sq[:, None] <= 0.0
         vz = vq <= 0.0
-        denom = torch.sqrt(q_sq[:, None] * vq)
+        denom = ieee_sqrt(q_sq[:, None] * vq)
         s_new = 1.0 - dot / torch.clamp_min(denom, _EPS)
         s_new = torch.where(qz | vz, 1.0, s_new)
         s_new = torch.where(qz & vz, 0.0, s_new)

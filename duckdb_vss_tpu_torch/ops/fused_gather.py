@@ -28,6 +28,7 @@ import torch
 from duckdb_vss_tpu_torch.ops import cuda_build
 from duckdb_vss_tpu_torch.ops.cuda_build import (MAX_SMEM_BYTES, METRIC_CODE,
                                                 check_tensor)
+from duckdb_vss_tpu_torch.ops.distance import ieee_sqrt
 from duckdb_vss_tpu_torch.utils.config import MetricKind
 from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
 
@@ -58,7 +59,7 @@ def gather_scores_plain(
         s = torch.clamp_min(qs + v_sq - 2.0 * dot, 0.0)
     elif metric == MetricKind.COSINE:
         v_sq = (rows * rows).sum(-1)
-        s = 1.0 - dot / torch.clamp_min(torch.sqrt(qs * v_sq), _EPS)
+        s = 1.0 - dot / torch.clamp_min(ieee_sqrt(qs * v_sq), _EPS)
         s = torch.where((qs <= 0.0) | (v_sq <= 0.0), 1.0, s)
         s = torch.where((qs <= 0.0) & (v_sq <= 0.0), 0.0, s)
     else:

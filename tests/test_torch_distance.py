@@ -141,3 +141,50 @@ def test_metric_score_to_function_value_matches_jax(metric):
           "ip": td.array_negative_inner_product}[metric]
     direct = np.stack([fn(np.repeat(qi[None], 8, 0), v).numpy() for qi in q])
     np.testing.assert_allclose(got, direct, rtol=1e-4, atol=1e-4)
+
+
+SQRT_BITS = [
+    (0x401A67EB, 0x3FC6D0F9), (0x3F984001, 0x3F8B9975),
+    (0x400AFC6E, 0x3FBCA0B5), (0x402A43F5, 0x3FD0C6FD),
+    (0x4011C516, 0x3FC12D23), (0x3E17FE87, 0x3EC541ED),
+    (0x4001BD71, 0x3FB63EDD), (0x401130EA, 0x3FC0CADC),
+    (0x00000000, 0x00000000), (0x00000001, 0x1A3504F3),
+    (0x7F800000, 0x7F800000), (0x3F800000, 0x3F800000),
+]
+
+
+@pytest.mark.parametrize("what", ["ieee_sqrt", "score_matrix", "pair_scores"])
+def test_cpu_sqrt_is_correctly_rounded(what):
+    """The port's square roots on the CPU are IEEE (correctly rounded),
+    as XLA's and CUDA's are: ieee_sqrt gives the correctly rounded root
+    of inputs that torch.sqrt on the CPU rounds one ulp low, and the
+    cosine scores equal numpy's f32 evaluation of the same dot products
+    and norms, bit for bit, over ~20,000 values. torch.sqrt on the CPU
+    is MKL's vsSqrt: within one ulp only (with it, 28 of the 20,480
+    cosine scores here were one ulp off), and its first call in a
+    process, split over threads, once returned half of its elements
+    from a 12-bit estimate (test_torch_sharded.py's fresh processes)."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.normal(size=(40, 32)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(512, 32)).astype(np.float32))
+    one, eps = np.float32(1.0), np.float32(1e-30)
+    if what == "ieee_sqrt":
+        # bits of x and of its correctly rounded root (the f64 root
+        # rounded to f32); MKL's vsSqrt gives the root one ulp lower for
+        # the first eight; then 0, the least subnormal, inf and 1
+        x = np.array(SQRT_BITS, dtype=np.uint32)[:, 0].view(np.float32)
+        got = td.ieee_sqrt(torch.from_numpy(x)).numpy()
+        want = np.array(SQRT_BITS, dtype=np.uint32)[:, 1].view(np.float32)
+    elif what == "score_matrix":
+        q_sq, v_sq = td.sq_norms(q), td.sq_norms(v)
+        got = td.score_matrix(q, v, MetricKind.COSINE, vec_sq=v_sq,
+                              query_sq=q_sq).numpy()
+        den = np.sqrt(q_sq.numpy()[:, None] * v_sq.numpy()[None, :])
+        want = one - td.dot_scores(q, v).numpy() / np.maximum(den, eps)
+    else:
+        a, b = q.repeat(512, 1), v.repeat(40, 1)
+        got = td.pair_scores(a, b, MetricKind.COSINE).numpy()
+        den = np.sqrt(((a * a).sum(-1) * (b * b).sum(-1)).numpy())
+        want = one - (a * b).sum(-1).numpy() / np.maximum(den, eps)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -192,6 +192,41 @@ def test_hnsw_add_matches_jax():
     assert t_self >= 0.97
 
 
+@pytest.mark.parametrize("layout", ["flat", "neighborhood"])
+def test_two_inserts_on_one_seed_give_one_graph(layout):
+    """The same rows inserted twice through the port, into two copies of
+    one JAX-built graph with the level generator at the same point: every
+    graph array, the store, the int8 tables (the neighborhood layout,
+    the card's insert path) and the distance count equal, bit for bit.
+    The JAX package's insert of the same rows: the level bookkeeping
+    equal, the neighbor lists as this file's other tests hold them."""
+    n0, n1 = 1000, 3 * BB - 17
+    v = _clustered(47, n0 + n1)
+    keys = np.arange(n0 + n1, dtype=np.int64) + 7
+    jidx = _jax_index(seed=5)
+    jidx.add(v[:n0], keys[:n0])
+    ports = [_port_copy(jidx) for _ in range(2)]
+    jidx.layout = layout
+    for t in ports:
+        t.layout = layout
+        t._level_rng.bit_generator.state = jidx._level_rng.bit_generator.state
+        if layout == "neighborhood":
+            assert t._neighborhood_tables()[0] is not None
+    for idx in [jidx] + ports:
+        idx.add(v[n0:], keys[n0:])
+    a, b = ports
+    for f in GRAPH_FIELDS:
+        assert torch.equal(getattr(a.graph, f), getattr(b.graph, f)), f
+    for f in ("_vectors", "_vec_sq", "_valid"):
+        assert torch.equal(getattr(a.store, f), getattr(b.store, f)), f
+    np.testing.assert_array_equal(a.store._keys, b.store._keys)
+    assert a.build_distance_count == b.build_distance_count > 0
+    if layout == "neighborhood":
+        assert all(torch.equal(x, y)
+                   for x, y in zip(a._nbr_cache, b._nbr_cache))
+    assert_graphs_agree(a.graph, jidx.graph, n0 + n1)
+
+
 def test_add_keeps_the_int8_layout_valid():
     """Bulk build, then incremental adds through the int8 neighborhood
     layout: the row-updated tables equal a rebuild from the final graph

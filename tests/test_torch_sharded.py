@@ -25,6 +25,10 @@ Tolerances:
   port by numpy); a port-written file reloads in the port bit for bit.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +43,7 @@ from duckdb_vss_tpu_torch.utils.convert import (sharded_from_arrays,
                                                 sharded_to_arrays)
 from test_torch_topk import (assert_same_ids_within_ties,
                              assert_scores_within, score_bound)
+from torch_flat_worker import FLAT_CASES, case_data, run_case
 
 torch.set_num_threads(2)
 
@@ -191,6 +196,73 @@ def test_sharded_flat_grow(jmesh, tmesh):
     assert t.cap == j.cap > 1024
     _assert_flat_equal(j, t, rng.normal(size=(9, d)).astype(np.float32), k,
                        "l2sq")
+
+
+def _f64_truth(case):
+    """A flat case's exact top-k in float64: (scores [nq, k], ids [nq,
+    k], the f32 score bound per query)."""
+    metric, k = FLAT_CASES[case][0], FLAT_CASES[case][-1]
+    v, q = case_data(case)
+    v64, q64 = v.astype(np.float64), q.astype(np.float64)
+    dot = q64 @ v64.T
+    q_sq, v_sq = (q64 * q64).sum(1)[:, None], (v64 * v64).sum(1)[None, :]
+    s = {"l2sq": q_sq - 2.0 * dot + v_sq, "ip": 1.0 - dot,
+         "cosine": 1.0 - dot / np.sqrt(q_sq * v_sq)}[metric]
+    ids = np.argsort(s, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(s, ids, 1), ids, score_bound(q, v, metric)
+
+
+def _assert_true(case, scores, keys, who):
+    """Scores within the f32 bound of the float64 truth, ids equal where
+    that bound separates the truth's neighbouring scores."""
+    metric = FLAT_CASES[case][0]
+    want_s, want_i, bound = _f64_truth(case)
+    try:
+        assert_scores_within(scores, want_s, bound, metric)
+        assert_same_ids_within_ties(keys, want_i, want_s, 2 * bound, metric)
+    except AssertionError as e:
+        raise AssertionError(f"{case}, {who} against the float64 truth "
+                             f"(printed as JAX): {e}") from None
+
+
+@pytest.mark.parametrize("case", list(FLAT_CASES))
+def test_sharded_flat_matches_float64_truth(jmesh, tmesh, case):
+    """Each sharded flat case through both packages in one process, each
+    held to the float64 truth within the f32 bound (the port against
+    the JAX package is test_sharded_flat_metrics and _grow)."""
+    s_t, k_t = run_case(tsh.ShardedFlatIndex, MetricKind, tmesh, case)
+    s_j, k_j = run_case(jsh.ShardedFlatIndex, JMetric, jmesh, case)
+    _assert_true(case, s_t, k_t, "port")
+    _assert_true(case, s_j, k_j, "JAX")
+
+
+FRESH_PROCESSES, AT_ONCE = 24, 6
+
+
+def test_sharded_flat_first_sqrt_in_fresh_processes(tmp_path):
+    """The sharded flat cases in fresh processes (tests/
+    torch_flat_worker.py, two torch threads, no JAX), the cosine scan
+    first, each process's results held to the float64 truth. The first
+    square root of a process is where torch.sqrt on the CPU (MKL's
+    vsSqrt, split over the threads) once returned about half of a
+    [8, 1024] block from a 12-bit estimate: the cosine scan then missed
+    its bound by ~1e-4, in ~1 of 5 such processes. ops/distance.ieee_sqrt
+    takes numpy's sqrt on the CPU instead."""
+    worker = os.path.join(os.path.dirname(__file__), "torch_flat_worker.py")
+    outs = [str(tmp_path / f"p{i}.npz") for i in range(FRESH_PROCESSES)]
+    for start in range(0, FRESH_PROCESSES, AT_ONCE):
+        procs = [subprocess.Popen([sys.executable, worker, out],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT)
+                 for out in outs[start:start + AT_ONCE]]
+        for proc in procs:
+            log = proc.communicate(timeout=300)[0].decode()
+            assert proc.returncode == 0, log
+    for i, out in enumerate(outs):
+        got = np.load(out)
+        for case in FLAT_CASES:
+            _assert_true(case, got[f"{case}_scores"], got[f"{case}_keys"],
+                         f"fresh process {i}")
 
 
 # ---------------------------------------------------------------------------

@@ -166,6 +166,52 @@ def test_grid_hnsw_equals_one_device(grid, n_first, tmp_path):
                                   pair[1].search(q, 5, ef=32)[0])
 
 
+def test_replica_rows_equal_one_row(tmp_path):
+    """(q 2, shard 2) on four CPU slots against the one-row mesh of two
+    shards, bit for bit: after the bulk build and an insert, after
+    remove, isolate and compact, and after save and load onto the grid.
+    Each replica row, given the same queries (one chunk of two copies:
+    row 0 answers the first, row 1 the second), returns the one-row
+    mesh's keys and scores; every field is equal in both rows; the two
+    files are byte-equal."""
+    v, q = clustered(19, 4096 + 256, 24, 16)
+    keys = np.arange(len(v), dtype=np.int64) * 5
+    one, grid = (tsh.ShardedHNSWIndex(16, HNSWConfig(**SMALL), mesh,
+                                      capacity_per_shard=4096,
+                                      build_batch=64)
+                 for mesh in (tsh.make_mesh(2, device="cpu"),
+                              tsh.make_mesh(2, 2, devices=["cpu"] * 4)))
+
+    def same(what, index=grid):
+        for ef_local in (16, 32):
+            want = one.search(q, 5, ef_local=ef_local)
+            got = index.search(np.concatenate([q, q]), 5, ef_local=ef_local)
+            for rows, name in ((slice(None, len(q)), "row 0"),
+                               (slice(len(q), None), "row 1")):
+                np.testing.assert_array_equal(got[1][rows], want[1],
+                                              err_msg=f"{what}, {name}")
+                np.testing.assert_array_equal(got[0][rows], want[0],
+                                              err_msg=f"{what}, {name}")
+        assert_same_arrays(one, index)
+        assert_replicas_equal(index)
+
+    for idx in (one, grid):
+        idx.add(v[:4096], keys[:4096])  # the bulk build
+        idx.add(v[4096:], keys[4096:])  # the insert path
+    same("add")
+    for idx in (one, grid):
+        assert idx.remove(keys[::7]) == len(keys[::7])
+        idx.isolate()
+        idx.compact()
+    same("remove, isolate and compact")
+    paths = [str(tmp_path / f"{name}.vss") for name in ("one", "grid")]
+    for idx, path in zip((one, grid), paths):
+        idx.save(path)
+    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+        assert a.read() == b.read()
+    same("load", tsh.ShardedHNSWIndex.load(paths[1], grid.mesh))
+
+
 @pytest.fixture(scope="module")
 def jax_q2():
     """A JAX index on make_mesh(4, 2) (8 virtual CPU devices) and its
