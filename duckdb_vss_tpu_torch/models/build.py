@@ -30,6 +30,7 @@ from duckdb_vss_tpu_torch.ops.distance import ieee_sqrt
 from duckdb_vss_tpu_torch.ops.topk import smallest_k
 from duckdb_vss_tpu_torch.utils.config import MetricKind
 from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
+from duckdb_vss_tpu_torch.utils.tracing import annotate, span
 
 _EPS = 1e-30
 
@@ -273,6 +274,7 @@ def _force_nearest_backlink(
     return table
 
 
+@span("insert.step")
 def insert_batch(
     state: GraphState,
     vectors: torch.Tensor,  # [cap, D], already holds the new vectors
@@ -308,140 +310,149 @@ def insert_batch(
                        else _apply_backlinks)
     dev = new_slots.device
     b = new_slots.shape[0]
-    active = new_slots >= 0
-    safe_slots = new_slots.clamp_min(0).long()
-    q = vectors[safe_slots]
-    q_sq = vec_sq[safe_slots]
-    new_levels = torch.where(active, new_levels.clamp_max(L_MAX), -1)
+    with annotate("insert.upper"):
+        active = new_slots >= 0
+        safe_slots = new_slots.clamp_min(0).long()
+        q = vectors[safe_slots]
+        q_sq = vec_sq[safe_slots]
+        new_levels = torch.where(active, new_levels.clamp_max(L_MAX), -1)
 
-    # ---- allocate upper slots for nodes with level >= 1 -----------------
-    has_upper = active & (new_levels >= 1)
-    cap_u = state.upper_neighbors.shape[0]
-    u_off = torch.cumsum(has_upper, 0, dtype=torch.int32) - 1
-    u_slot_new = torch.where(has_upper, state.upper_count + u_off, -1)
-    u_slot_new = torch.where(u_slot_new < cap_u, u_slot_new, -1)  # table full
-    got = torch.nonzero(u_slot_new >= 0)[:, 0]
-    upper_slot = state.upper_slot.clone()
-    upper_slot[safe_slots[got]] = u_slot_new[got]
-    upper_node = state.upper_node.clone()
-    upper_node[u_slot_new[got].long()] = new_slots[got]
-    # nodes that failed upper allocation fall back to level 0
-    new_levels = torch.where(has_upper & (u_slot_new < 0), 0, new_levels)
-    live = torch.nonzero(active)[:, 0]
-    levels = state.levels.clone()
-    levels[safe_slots[live]] = new_levels[live]
-    upper_neighbors = state.upper_neighbors.clone()
-    state = state._replace(
-        upper_slot=upper_slot, upper_node=upper_node, levels=levels,
-        upper_neighbors=upper_neighbors,
-        upper_count=(state.upper_count + got.numel()).to(torch.int32))
+        # ---- allocate upper slots for nodes with level >= 1 -------------
+        has_upper = active & (new_levels >= 1)
+        cap_u = state.upper_neighbors.shape[0]
+        u_off = torch.cumsum(has_upper, 0, dtype=torch.int32) - 1
+        u_slot_new = torch.where(has_upper, state.upper_count + u_off, -1)
+        # table full
+        u_slot_new = torch.where(u_slot_new < cap_u, u_slot_new, -1)
+        got = torch.nonzero(u_slot_new >= 0)[:, 0]
+        upper_slot = state.upper_slot.clone()
+        upper_slot[safe_slots[got]] = u_slot_new[got]
+        upper_node = state.upper_node.clone()
+        upper_node[u_slot_new[got].long()] = new_slots[got]
+        # nodes that failed upper allocation fall back to level 0
+        new_levels = torch.where(has_upper & (u_slot_new < 0), 0, new_levels)
+        live = torch.nonzero(active)[:, 0]
+        levels = state.levels.clone()
+        levels[safe_slots[live]] = new_levels[live]
+        upper_neighbors = state.upper_neighbors.clone()
+        state = state._replace(
+            upper_slot=upper_slot, upper_node=upper_node, levels=levels,
+            upper_neighbors=upper_neighbors,
+            upper_count=(state.upper_count + got.numel()).to(torch.int32))
 
-    # ---- intra-batch peer candidates (within-batch reachability) --------
-    peer_s = _pairwise_scores(q[None], q_sq[None], metric)[0]  # [B, B]
-    self_mask = torch.eye(b, dtype=torch.bool, device=dev)
-    peer_s = torch.where(self_mask | ~active[None, :] | ~active[:, None],
-                         INF_SCORE, peer_s)
-    peer_top, peer_pos = smallest_k(peer_s, min(16, b))
-    # fewer active peers than columns: the INF-masked picks (self among
-    # them) are dropped, or the batch would seed self-edges
-    peer_ok = peer_top < INF_SCORE
-    peer_ids = torch.where(peer_ok, new_slots[peer_pos], -1)
-    peer_levels = torch.where(peer_ok, new_levels[peer_pos], -1)
+        # ---- intra-batch peer candidates (within-batch reachability) ----
+        peer_s = _pairwise_scores(q[None], q_sq[None], metric)[0]  # [B, B]
+        self_mask = torch.eye(b, dtype=torch.bool, device=dev)
+        peer_s = torch.where(self_mask | ~active[None, :] | ~active[:, None],
+                             INF_SCORE, peer_s)
+        peer_top, peer_pos = smallest_k(peer_s, min(16, b))
+        # fewer active peers than columns: the INF-masked picks (self among
+        # them) are dropped, or the batch would seed self-edges
+        peer_ok = peer_top < INF_SCORE
+        peer_ids = torch.where(peer_ok, new_slots[peer_pos], -1)
+        peer_levels = torch.where(peer_ok, new_levels[peer_pos], -1)
 
-    n_dist = torch.zeros((), dtype=torch.int64, device=dev)
+        n_dist = torch.zeros((), dtype=torch.int64, device=dev)
 
-    # ---- phase A: upper levels, top down (one host read of the top) -----
-    seeds = state.entry_node.expand(b)[:, None]
-    max_level = int(state.max_level)
-    top_lvl = min(max(max_level, int(new_levels.max()), 0), L_MAX)
-    blc_u = min(backlink_cols or m, m)
-    for lvl in range(top_lvl, 0, -1):
-        write_here = active & (new_levels >= lvl)
-        touch = write_here.any() | (lvl <= max_level)
-        peer_here = torch.where(peer_levels >= lvl, peer_ids, -1)
+        # ---- phase A: upper levels, top down (one host read of the top) -
+        seeds = state.entry_node.expand(b)[:, None]
+        max_level = int(state.max_level)
+        top_lvl = min(max(max_level, int(new_levels.max()), 0), L_MAX)
+        blc_u = min(backlink_cols or m, m)
+        for lvl in range(top_lvl, 0, -1):
+            write_here = active & (new_levels >= lvl)
+            touch = write_here.any() | (lvl <= max_level)
+            peer_here = torch.where(peer_levels >= lvl, peer_ids, -1)
+            scores, ids, nd = beam_search(
+                state, vectors, vec_sq, q, q_sq,
+                torch.cat([seeds, peer_here], 1), ef_upper, metric, level=lvl,
+                expand=1, active=active & touch, max_steps=max_steps_upper)
+            n_dist = n_dist + nd
+            self_hit = ids == new_slots[:, None]  # never link a node to itself
+            ids = torch.where(self_hit, -1, ids)
+            scores = torch.where(self_hit, INF_SCORE, scores)
+
+            sel = select_diverse(vectors, vec_sq, ids, scores, m, metric)
+            sel = torch.where(write_here[:, None], sel, -1)
+            # forward edges: the level's m-wide window of the packed row
+            col_off = (lvl - 1) * m
+            row = torch.where(write_here, upper_slot[safe_slots], -1)
+            wr = torch.nonzero(row >= 0)[:, 0]
+            _write_window(upper_neighbors, row[wr], col_off, m, sel[wr])
+
+            # back edges at this level: targets' rows live at upper_slot[tgt]
+            tgt = sel[:, :blc_u].reshape(-1)
+            src = new_slots.repeat_interleave(blc_u)
+            act = (tgt >= 0) & (src >= 0)
+            tgt_uslot = torch.where(act, upper_slot[tgt.clamp_min(0).long()],
+                                    -1)
+            act = act & (tgt_uslot >= 0)
+            apply_backlinks(upper_neighbors, vectors, vec_sq, tgt, src, act,
+                            tgt_uslot, metric, r_rounds, prune,
+                            col_off=col_off, m_cap=m)
+
+            # seed the next level with this level's best (else keep the seeds)
+            best = torch.where(ids[:, :1] >= 0, ids[:, :1], seeds[:, :1])
+            seeds = torch.where(touch, best, seeds[:, :1])
+
+    with annotate("insert.base"):
+        # ---- phase B: base layer --------------------------------------
+        # exact coarse routing for the base seeds: score the batch against
+        # ALL upper-level nodes (a greedy top-down walk strands clustered
+        # inserts in the wrong region)
+        u_safe = upper_node.clamp_min(0).long()
+        mxu_seeds, nd_mxu = mxu_descent(
+            vectors[u_safe].to(torch.bfloat16),
+            vec_sq[u_safe] * (upper_node >= 0),
+            upper_node, state.entry_node, q, metric, n_seeds=8)
+        n_dist = n_dist + nd_mxu
+        # never seed a node with itself
+        mxu_seeds = torch.where(mxu_seeds == new_slots[:, None], -1,
+                                mxu_seeds)
+
         scores, ids, nd = beam_search(
             state, vectors, vec_sq, q, q_sq,
-            torch.cat([seeds, peer_here], 1), ef_upper, metric, level=lvl,
-            expand=1, active=active & touch, max_steps=max_steps_upper)
+            torch.cat([seeds, mxu_seeds, peer_ids], 1), ef_construction,
+            metric, level=0, expand=expand, active=active,
+            max_steps=max_steps_base,
+            nbr_vecs=nbr_vecs, nbr_scale=nbr_scale, nbr_sq=nbr_sq)
         n_dist = n_dist + nd
-        self_hit = ids == new_slots[:, None]  # never link a node to itself
+        self_hit = ids == new_slots[:, None]
         ids = torch.where(self_hit, -1, ids)
         scores = torch.where(self_hit, INF_SCORE, scores)
+        sel = select_diverse(vectors, vec_sq, ids, scores, m0, metric)
+        sel = torch.where(active[:, None], sel, -1)
+        neighbors0 = state.neighbors0.clone()
+        neighbors0[safe_slots[live]] = sel[live]
 
-        sel = select_diverse(vectors, vec_sq, ids, scores, m, metric)
-        sel = torch.where(write_here[:, None], sel, -1)
-        # forward edges: the level's m-wide window of the packed row
-        col_off = (lvl - 1) * m
-        row = torch.where(write_here, upper_slot[safe_slots], -1)
-        wr = torch.nonzero(row >= 0)[:, 0]
-        _write_window(upper_neighbors, row[wr], col_off, m, sel[wr])
-
-        # back edges at this level: targets' rows live at upper_slot[tgt]
-        tgt = sel[:, :blc_u].reshape(-1)
-        src = new_slots.repeat_interleave(blc_u)
+    with annotate("insert.backlinks"):
+        # sel is in selection order, closest first, so its first blc columns
+        # ARE the closest targets
+        blc = min(backlink_cols or m0, m0)
+        tgt = sel[:, :blc].reshape(-1)
+        src = new_slots.repeat_interleave(blc)
         act = (tgt >= 0) & (src >= 0)
-        tgt_uslot = torch.where(act, upper_slot[tgt.clamp_min(0).long()], -1)
-        act = act & (tgt_uslot >= 0)
-        apply_backlinks(upper_neighbors, vectors, vec_sq, tgt, src, act,
-                        tgt_uslot, metric, r_rounds, prune,
-                        col_off=col_off, m_cap=m)
+        apply_backlinks(neighbors0, vectors, vec_sq, tgt, src, act,
+                        torch.where(act, tgt, -1), metric, r_rounds, prune)
+        # reachability floor: the nearest forward target always adopts the
+        # new node (see _force_nearest_backlink)
+        _force_nearest_backlink(neighbors0, vectors, vec_sq, sel[:, 0],
+                                new_slots, active & (sel[:, 0] >= 0), metric,
+                                r_rounds)
 
-        # seed the next level with this level's best (else keep the seeds)
-        best = torch.where(ids[:, :1] >= 0, ids[:, :1], seeds[:, :1])
-        seeds = torch.where(touch, best, seeds[:, :1])
-
-    # ---- phase B: base layer ------------------------------------------
-    # exact coarse routing for the base seeds: score the batch against
-    # ALL upper-level nodes (a greedy top-down walk strands clustered
-    # inserts in the wrong region)
-    u_safe = upper_node.clamp_min(0).long()
-    mxu_seeds, nd_mxu = mxu_descent(
-        vectors[u_safe].to(torch.bfloat16), vec_sq[u_safe] * (upper_node >= 0),
-        upper_node, state.entry_node, q, metric, n_seeds=8)
-    n_dist = n_dist + nd_mxu
-    # never seed a node with itself
-    mxu_seeds = torch.where(mxu_seeds == new_slots[:, None], -1, mxu_seeds)
-
-    scores, ids, nd = beam_search(
-        state, vectors, vec_sq, q, q_sq,
-        torch.cat([seeds, mxu_seeds, peer_ids], 1), ef_construction, metric,
-        level=0, expand=expand, active=active, max_steps=max_steps_base,
-        nbr_vecs=nbr_vecs, nbr_scale=nbr_scale, nbr_sq=nbr_sq)
-    n_dist = n_dist + nd
-    self_hit = ids == new_slots[:, None]
-    ids = torch.where(self_hit, -1, ids)
-    scores = torch.where(self_hit, INF_SCORE, scores)
-    sel = select_diverse(vectors, vec_sq, ids, scores, m0, metric)
-    sel = torch.where(active[:, None], sel, -1)
-    neighbors0 = state.neighbors0.clone()
-    neighbors0[safe_slots[live]] = sel[live]
-
-    # sel is in selection order, closest first, so its first blc columns
-    # ARE the closest targets
-    blc = min(backlink_cols or m0, m0)
-    tgt = sel[:, :blc].reshape(-1)
-    src = new_slots.repeat_interleave(blc)
-    act = (tgt >= 0) & (src >= 0)
-    apply_backlinks(neighbors0, vectors, vec_sq, tgt, src, act,
-                    torch.where(act, tgt, -1), metric, r_rounds, prune)
-    # reachability floor: the nearest forward target always adopts the
-    # new node (see _force_nearest_backlink)
-    _force_nearest_backlink(neighbors0, vectors, vec_sq, sel[:, 0], new_slots,
-                            active & (sel[:, 0] >= 0), metric, r_rounds)
-
-    # ---- entry point / max level update ---------------------------------
-    batch_best = torch.argmax(torch.where(active, new_levels, -1))  # first
-    batch_max = new_levels[batch_best]
-    promote = batch_max > state.max_level
-    entry = torch.where(promote, new_slots[batch_best], state.entry_node)
-    top = torch.where(promote, batch_max, state.max_level)
-    # first-ever batch: entry may still be unset if all levels were 0
-    need_entry = (entry < 0) & active.any()
-    first_active = torch.argmax(active.to(torch.int32))
-    state = state._replace(
-        neighbors0=neighbors0,
-        entry_node=torch.where(need_entry, new_slots[first_active],
-                               entry).to(torch.int32),
-        max_level=torch.where(need_entry, top.clamp_min(0),
-                              top).to(torch.int32))
+        # ---- entry point / max level update -----------------------------
+        batch_best = torch.argmax(torch.where(active, new_levels, -1))  # first
+        batch_max = new_levels[batch_best]
+        promote = batch_max > state.max_level
+        entry = torch.where(promote, new_slots[batch_best], state.entry_node)
+        top = torch.where(promote, batch_max, state.max_level)
+        # first-ever batch: entry may still be unset if all levels were 0
+        need_entry = (entry < 0) & active.any()
+        first_active = torch.argmax(active.to(torch.int32))
+        state = state._replace(
+            neighbors0=neighbors0,
+            entry_node=torch.where(need_entry, new_slots[first_active],
+                                   entry).to(torch.int32),
+            max_level=torch.where(need_entry, top.clamp_min(0),
+                                  top).to(torch.int32))
     return state, n_dist

@@ -43,6 +43,7 @@ from duckdb_vss_tpu_torch.ops.fused_gather import gather_scores_kernel
 from duckdb_vss_tpu_torch.ops.topk import flat_topk, smallest_k
 from duckdb_vss_tpu_torch.utils.config import MetricKind
 from duckdb_vss_tpu_torch.utils.padding import INF_SCORE, pad_dim
+from duckdb_vss_tpu_torch.utils.tracing import annotate, count, span
 
 # Static cap on levels above base. P(level >= 8) = M^-8 (~2e-10 at M=16).
 L_MAX = 8
@@ -275,6 +276,7 @@ def make_neighborhood_tables(
     return table, scales, sq
 
 
+@span("insert.rows")
 def update_neighborhood_rows(nbr_vecs, nbr_scale, nbr_sq, nbr_meta,
                              vectors, vec_sq, neighbors0, new_slots):
     """Refresh the neighborhood layout for the rows an insert batch
@@ -680,53 +682,64 @@ def search_graph(
     With ``pallas_beam`` and the neighborhood layout the base beam runs
     in kernel K1 while ef <= 128 and expand <= 8; wider searches, and
     indexes without the layout, run ``beam_search``."""
-    queries = queries.float()
-    q_sq = (queries * queries).sum(-1)
-    trav = vectors if traversal_vectors is None else traversal_vectors
-    if descent == "mxu":
-        seeds, n_dist0 = mxu_descent(
-            upper_vecs, upper_vec_sq,
-            state.upper_node if upper_nodes is None else upper_nodes,
-            state.entry_node, queries, metric, n_seeds)
-    elif descent == "beam":
-        seeds, n_dist0 = beam_descent(
-            state, trav, vec_sq, queries, q_sq, metric,
-            descent_ef=descent_ef, n_seeds=n_seeds,
-            descent_steps=descent_steps)
-    else:
-        raise ValueError(f"descent must be 'mxu' or 'beam', got {descent!r}")
+    with annotate("search.descent"):
+        queries = queries.float()
+        q_sq = (queries * queries).sum(-1)
+        trav = vectors if traversal_vectors is None else traversal_vectors
+        if descent == "mxu":
+            seeds, n_dist0 = mxu_descent(
+                upper_vecs, upper_vec_sq,
+                state.upper_node if upper_nodes is None else upper_nodes,
+                state.entry_node, queries, metric, n_seeds)
+        elif descent == "beam":
+            seeds, n_dist0 = beam_descent(
+                state, trav, vec_sq, queries, q_sq, metric,
+                descent_ef=descent_ef, n_seeds=n_seeds,
+                descent_steps=descent_steps)
+        else:
+            raise ValueError(
+                f"descent must be 'mxu' or 'beam', got {descent!r}")
     ef_eff = max(ef, k)
     finish = dict(hop=hop_rerank, neighbors0=state.neighbors0,
                   nbr_vecs=nbr_vecs, nbr_scale=nbr_scale, nbr_sq=nbr_sq)
     if (pallas_beam and nbr_vecs is not None and nbr_meta is not None
             and ef_eff <= FUSED_MAX_EF and expand <= FUSED_MAX_EXPAND):
-        seed_s, seed_i = seed_beam(vectors, vec_sq, seeds, queries, q_sq,
-                                   metric, ef_eff)
+        with annotate("search.seed"):
+            seed_s, seed_i = seed_beam(vectors, vec_sq, seeds, queries, q_sq,
+                                       metric, ef_eff)
+            n_dist0 = n_dist0 + (seeds >= 0).sum()
         # recall saturates by ef/2 steps (measured in the JAX package), so
         # the fixed-trip kernel needs no early exit and search no host sync
         steps = max_steps if max_steps is not None else max(8, ef_eff // 2)
         m0 = state.neighbors0.shape[1]
-        scores, ids, n_dist1, _n_exp = fused_beam_search(
-            queries, q_sq, seed_s, seed_i, nbr_meta, nbr_vecs,
-            ef=ef_eff, expand=expand, m0=m0, d=queries.shape[1],
-            max_steps=steps, metric=metric)
-        n_dist = n_dist0 + n_dist1 + (seeds >= 0).sum()
-        return _finish_search(vectors, vec_sq, valid_mask, queries, q_sq,
-                              metric, k, scores, ids, n_dist, **finish)
-    aug = aug_table is not None and nbr_vecs is None
-    if aug:
-        beam_q, beam_bias = make_aug_queries(queries, q_sq, metric,
-                                             aug_table.shape[1])
-        beam_tab = aug_table
+        with annotate("search.beam"):
+            scores, ids, n_dist1, n_exp = fused_beam_search(
+                queries, q_sq, seed_s, seed_i, nbr_meta, nbr_vecs,
+                ef=ef_eff, expand=expand, m0=m0, d=queries.shape[1],
+                max_steps=steps, metric=metric)
+        count("k1.distances", n_dist1)
+        count("k1.expansions", n_exp)
     else:
-        beam_tab, beam_q, beam_bias = trav, queries, q_sq
-    scores, ids, n_dist1 = beam_search(
-        state, beam_tab, vec_sq, beam_q, beam_bias, seeds, ef_eff, metric,
-        level=0, expand=expand, max_steps=max_steps, use_pallas=use_pallas,
-        loop=loop, aug=aug, nbr_vecs=nbr_vecs, nbr_scale=nbr_scale,
-        nbr_sq=nbr_sq)
-    return _finish_search(vectors, vec_sq, valid_mask, queries, q_sq, metric,
-                          k, scores, ids, n_dist0 + n_dist1, **finish)
+        with annotate("search.beam"):
+            aug = aug_table is not None and nbr_vecs is None
+            if aug:
+                beam_q, beam_bias = make_aug_queries(queries, q_sq, metric,
+                                                     aug_table.shape[1])
+                beam_tab = aug_table
+            else:
+                beam_tab, beam_q, beam_bias = trav, queries, q_sq
+            scores, ids, n_dist1 = beam_search(
+                state, beam_tab, vec_sq, beam_q, beam_bias, seeds, ef_eff,
+                metric, level=0, expand=expand, max_steps=max_steps,
+                use_pallas=use_pallas, loop=loop, aug=aug, nbr_vecs=nbr_vecs,
+                nbr_scale=nbr_scale, nbr_sq=nbr_sq)
+    with annotate("search.finish"):
+        out = _finish_search(vectors, vec_sq, valid_mask, queries, q_sq,
+                             metric, k, scores, ids, n_dist0 + n_dist1,
+                             **finish)
+    count("search.queries", queries.shape[0])
+    count("search.distances", out[2])
+    return out
 
 
 def _sort_score_then_high_id(scores, ids, k):

@@ -48,6 +48,7 @@ from duckdb_vss_tpu_torch.ops.distance import pair_scores
 from duckdb_vss_tpu_torch.ops.fused_beam import pack_meta
 from duckdb_vss_tpu_torch.utils.config import HNSWConfig, MetricKind
 from duckdb_vss_tpu_torch.utils.padding import round_up
+from duckdb_vss_tpu_torch.utils.tracing import annotate, count, span
 
 DEFAULT_BUILD_BATCH = 256
 # cap on the upper-level construction beams' steps: those beams only wire
@@ -161,7 +162,8 @@ class HNSWIndex:
         self._upper_cache = None
         self._nbr_cache = None
         self._level_rng = np.random.default_rng(seed)
-        # distance counters (usearch computed_distances)
+        # distance counters (usearch computed_distances); the search
+        # count's newest part stays on the device until it is read
         self.build_distance_count = 0
         self.search_distance_count = 0
         self.build_stats: dict = {}  # the last bulk build's stats_out
@@ -176,6 +178,24 @@ class HNSWIndex:
             fn(self)
 
     # ------------------------------------------------------------------
+    @property
+    def search_distance_count(self) -> int:
+        """Distances computed by searches (and ``cluster``): an int,
+        read back from the device here and not on every search."""
+        if self._search_nd_dev is not None:
+            self._search_nd += int(self._search_nd_dev)
+            self._search_nd_dev = None
+        return self._search_nd
+
+    @search_distance_count.setter
+    def search_distance_count(self, value: int) -> None:
+        self._search_nd, self._search_nd_dev = int(value), None
+
+    def _add_search_distances(self, n_dist: torch.Tensor) -> None:
+        """Add a device count to search_distance_count, on the device."""
+        self._search_nd_dev = (n_dist if self._search_nd_dev is None
+                               else self._search_nd_dev + n_dist)
+
     @property
     def dims(self) -> int:
         return self.store.dims
@@ -258,6 +278,7 @@ class HNSWIndex:
         return self._nbr_cache
 
     # ------------------------------------------------------------------
+    @span("index.add")
     def add(self, vectors: np.ndarray, keys, on_progress=None) -> np.ndarray:
         """Bulk or incremental insert. Returns the assigned slot ids.
 
@@ -324,6 +345,7 @@ class HNSWIndex:
                 backlink_cols=self.build_backlink_cols,
                 r_rounds=self.build_r_rounds, max_steps_base=msb,
                 max_steps_upper=msu, nbr_vecs=nv, nbr_scale=nsc, nbr_sq=nsq)
+            count("insert.rows", min(bb, n - i * bb))
             if nv is not None:
                 update_neighborhood_rows(
                     nv, nsc, nsq, nmeta, self.store._vectors,
@@ -354,6 +376,7 @@ class HNSWIndex:
         self.is_dirty = True
 
     # ------------------------------------------------------------------
+    @span("index.search")
     def search(
         self,
         queries: np.ndarray,
@@ -377,18 +400,23 @@ class HNSWIndex:
         qarr = np.asarray(queries, np.float32)
         if qarr.ndim == 1:
             qarr = qarr[None, :]
-        outs = [self.search_device(
-            self.store.prepare_queries(qarr[off:off + chunk],
-                                       self.query_transfer_dtype),
-            k, ef, expand, max_steps, n_seeds, hop_rerank, descent_ef, loop)
-            for off in range(0, qarr.shape[0], chunk)]
+        outs = []
+        for off in range(0, qarr.shape[0], chunk):
+            with annotate("index.upload"):
+                q = self.store.prepare_queries(qarr[off:off + chunk],
+                                               self.query_transfer_dtype)
+            outs.append(self.search_device(q, k, ef, expand, max_steps,
+                                           n_seeds, hop_rerank, descent_ef,
+                                           loop))
         if not outs:
             return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int64))
-        scores = torch.cat([o[0] for o in outs]).cpu().numpy()
-        slots = torch.cat([o[1] for o in outs]).cpu().numpy()
-        self.search_distance_count += int(sum(o[2] for o in outs))
-        keys = np.where(slots >= 0, self.store._keys[np.maximum(slots, 0)],
-                        np.int64(-1))
+        self._add_search_distances(sum(o[2] for o in outs))
+        with annotate("index.download"):
+            scores = torch.cat([o[0] for o in outs]).cpu().numpy()
+            slots = torch.cat([o[1] for o in outs]).cpu().numpy()
+            keys = np.where(slots >= 0,
+                            self.store._keys[np.maximum(slots, 0)],
+                            np.int64(-1))
         return scores, keys
 
     def search_device(self, queries_padded: torch.Tensor, k: int,
@@ -594,7 +622,7 @@ class HNSWIndex:
         b = qarr.shape[0]
         lvl = int(np.clip(level, 1, max(int(self.graph.max_level), 1)))
         st = self.store
-        nodes, scores, nd_total = [], [], 0
+        nodes, scores = [], []
         for off in range(0, b, chunk):
             q = st.prepare_queries(qarr[off:off + chunk])
             q_sq = (q * q).sum(-1)
@@ -605,11 +633,10 @@ class HNSWIndex:
             nodes.append(cur)
             scores.append(gather_scores(st._vectors, st._vec_sq, cur[:, None],
                                         q, q_sq, self.metric)[:, 0])
-            nd_total += int(nd)
+            self._add_search_distances(nd)
         if not nodes:
             return np.zeros((0,), np.int64), np.zeros((0,), np.float32)
         nodes_np = torch.cat(nodes).cpu().numpy()
-        self.search_distance_count += nd_total
         keys = np.where(nodes_np >= 0, st._keys[np.maximum(nodes_np, 0)],
                         np.int64(-1))
         return keys, torch.cat(scores).cpu().numpy()

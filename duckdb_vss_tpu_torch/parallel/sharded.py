@@ -73,6 +73,7 @@ from duckdb_vss_tpu_torch.utils.convert import (device_tensor,
                                                 sharded_to_arrays)
 from duckdb_vss_tpu_torch.utils.device import resolve_device
 from duckdb_vss_tpu_torch.utils.padding import pad_2d_np, pad_dim, round_up
+from duckdb_vss_tpu_torch.utils.tracing import annotate, span
 
 SCATTER_ROWS = 4096  # rows per host-to-device step of an add
 BULK_MIN_ROWS = 4096  # an add into empty graphs of this many rows bulk-builds
@@ -334,13 +335,15 @@ def _merge(mesh: Mesh, scores: torch.Tensor, gids: torch.Tensor, k: int
     holds them. Ties fall to the lowest position, i.e. the lowest shard,
     as lax.top_k on the JAX package's concatenation."""
     if mesh.collectives:
-        dev = scores.device
-        scores, gids = (_gather(mesh, x).to(dev) for x in (scores, gids))
-    s, b, kk = scores.shape
-    cat_s = scores.permute(1, 0, 2).reshape(b, s * kk)
-    cat_g = gids.permute(1, 0, 2).reshape(b, s * kk)
-    out_s, pos = smallest_k(cat_s, k)
-    return out_s, torch.gather(cat_g, 1, pos)
+        with annotate("sharded.gather"):
+            dev = scores.device
+            scores, gids = (_gather(mesh, x).to(dev) for x in (scores, gids))
+    with annotate("sharded.merge"):
+        s, b, kk = scores.shape
+        cat_s = scores.permute(1, 0, 2).reshape(b, s * kk)
+        cat_g = gids.permute(1, 0, 2).reshape(b, s * kk)
+        out_s, pos = smallest_k(cat_s, k)
+        return out_s, torch.gather(cat_g, 1, pos)
 
 
 def _keys_of(keys: np.ndarray, gids: np.ndarray) -> np.ndarray:
@@ -404,8 +407,8 @@ def _grid_search(index, queries: np.ndarray, chunk: int, k: int, run):
     ids [B_q, k]), every block of every chunk uploaded first (a copy
     from pageable memory waits for its stream) and every search issued
     before the host waits on any. Each row's results are merged on its
-    first device (_merge). Returns (scores [B, k], global ids [B, k]) on
-    the host, in query order."""
+    first device (_merge). Returns (scores [B, k], keys [B, k]) on the
+    host, in query order."""
     if not len(queries):
         return np.zeros((0, k), np.float32), np.zeros((0, k), np.int64)
     mesh = index.mesh
@@ -413,37 +416,47 @@ def _grid_search(index, queries: np.ndarray, chunk: int, k: int, run):
     mult = math.lcm(max(8, mesh.shape["q"]), len(rows))
     chunk = round_up(max(int(chunk), mult), mult)
     blocks = []  # per chunk: (rows kept, per row {device: query block})
-    for off in range(0, len(queries), chunk):
-        qc = queries[off:off + chunk]
-        qp = pad_2d_np(qc, round_up(len(qc), mult), index.d_pad)
-        bq = len(qp) // len(rows)
-        blocks.append((len(qc), [
-            {dev: torch.from_numpy(qp[r * bq:(r + 1) * bq]).to(dev)
-             for dev in dict.fromkeys(s.device for s in row)}
-            for r, row in enumerate(rows)]))
+    with annotate("sharded.upload"):
+        for off in range(0, len(queries), chunk):
+            qc = queries[off:off + chunk]
+            qp = pad_2d_np(qc, round_up(len(qc), mult), index.d_pad)
+            bq = len(qp) // len(rows)
+            blocks.append((len(qc), [
+                {dev: torch.from_numpy(qp[r * bq:(r + 1) * bq]).to(dev)
+                 for dev in dict.fromkeys(s.device for s in row)}
+                for r, row in enumerate(rows)]))
     issued = []  # per chunk, per row: {local shard: (scores, gids)}
-    for _, per_row in blocks:
-        issued.append([{} for _ in rows])
-        for r, row in enumerate(rows):
-            for i, slot in enumerate(row):
-                q = per_row[r][slot.device]
-                with _on_stream(mesh.stream(r, i), q):
-                    for j in slot.shards:
-                        issued[-1][r][j] = run(r, j, q)
-    merged = [[_merge(mesh, *_to_row_device(mesh, r, res), k)
-               for r, res in enumerate(per_chunk)] for per_chunk in issued]
-    for r, row in enumerate(rows):  # later work on a card waits for its slots
-        for i, slot in enumerate(row):
-            stream = mesh.stream(r, i)
-            if stream is not None:
-                torch.cuda.current_stream(slot.device).wait_stream(stream)
-    scores, gids = [], []
-    for (n_keep, _), out in zip(blocks, merged):
-        s_host = np.concatenate([s.cpu().numpy() for s, _ in out])
-        g_host = np.concatenate([g.cpu().numpy() for _, g in out])
-        scores.append(s_host[:n_keep])
-        gids.append(g_host[:n_keep])
-    return np.concatenate(scores), np.concatenate(gids)
+    with annotate("sharded.issue"):
+        for _, per_row in blocks:
+            issued.append([{} for _ in rows])
+            for r, row in enumerate(rows):
+                for i, slot in enumerate(row):
+                    q = per_row[r][slot.device]
+                    with _on_stream(mesh.stream(r, i), q):
+                        for j in slot.shards:
+                            issued[-1][r][j] = run(r, j, q)
+    merged = []
+    for per_chunk in issued:
+        merged.append([])
+        for r, res in enumerate(per_chunk):
+            with annotate("sharded.gather"):
+                stacked = _to_row_device(mesh, r, res)
+            merged[-1].append(_merge(mesh, *stacked, k))
+    with annotate("sharded.download"):
+        for r, row in enumerate(rows):  # later work on a card waits for
+            for i, slot in enumerate(row):  # its slots
+                stream = mesh.stream(r, i)
+                if stream is not None:
+                    torch.cuda.current_stream(slot.device).wait_stream(
+                        stream)
+        scores, gids = [], []
+        for (n_keep, _), out in zip(blocks, merged):
+            s_host = np.concatenate([s.cpu().numpy() for s, _ in out])
+            g_host = np.concatenate([g.cpu().numpy() for _, g in out])
+            scores.append(s_host[:n_keep])
+            gids.append(g_host[:n_keep])
+        return np.concatenate(scores), _keys_of(index._keys,
+                                                np.concatenate(gids))
 
 
 class _Group:
@@ -589,6 +602,7 @@ class ShardedFlatIndex(_ShardStore):
                             vectors[idx])
         self._sync_replicas()
 
+    @span("sharded.search")
     def search(self, queries: np.ndarray, k: int):
         """Exact top-k over every shard. Returns (scores [B, k], keys
         [B, k])."""
@@ -605,8 +619,7 @@ class ShardedFlatIndex(_ShardStore):
             return scores, torch.where(
                 slots >= 0, (start + j) * self.cap + slots.long(), -1)
 
-        scores, gids = _grid_search(self, queries, len(queries), int(k), run)
-        return scores, _keys_of(self._keys, gids)
+        return _grid_search(self, queries, len(queries), int(k), run)
 
 
 # ---------------------------------------------------------------------------
@@ -1031,6 +1044,7 @@ class ShardedHNSWIndex(_ShardStore):
             kw.update(traversal_vectors=g.trav[p])
         return (self._state(j, row), *self._store(j, row), kw)
 
+    @span("sharded.search")
     def search(self, queries: np.ndarray, k: int, ef: int | None = None,
                expand: int = 4, chunk: int = 8192,
                ef_local: int | None = None):
@@ -1063,8 +1077,7 @@ class ShardedHNSWIndex(_ShardStore):
             return scores, torch.where(slots >= 0,
                                        (start + j) * cap + slots.long(), -1)
 
-        scores, gids = _grid_search(self, queries, chunk, int(k), run)
-        return scores, _keys_of(self._keys, gids)
+        return _grid_search(self, queries, chunk, int(k), run)
 
     # -- introspection / persistence ----------------------------------------
     def stats(self) -> dict:

@@ -43,6 +43,7 @@ from duckdb_vss_tpu_torch.utils.config import (
     MetricKind,
 )
 from duckdb_vss_tpu_torch.utils.device import resolve_device
+from duckdb_vss_tpu_torch.utils.tracing import annotate, span
 
 
 class VectorType:
@@ -333,6 +334,7 @@ class Database:
         }
 
     # -- SQL text surface ------------------------------------------------
+    @span("sql.execute")
     def execute(self, sql: str):
         """Execute a SQL script (the reference's L5 surface). Query
         statements return a column batch dict; EXPLAIN returns the
@@ -549,11 +551,16 @@ class QueryBuilder:
         return self.plan().explain()
 
     # -- execution ------------------------------------------------------
-    def execute(self) -> dict[str, np.ndarray]:
-        plan = self.plan()
+    def execute(self, plan: P.PlanNode | None = None
+                ) -> dict[str, np.ndarray]:
+        """Run ``plan`` (default: the query's plan, made here)."""
+        if plan is None:
+            with annotate("sql.plan"):
+                plan = self.plan()
         batch = _execute_node(plan, self.tbl.db)
-        if self._limit is not None:
-            batch = {c: v[: self._limit] for c, v in batch.items()}
+        with annotate("sql.result"):
+            if self._limit is not None:
+                batch = {c: v[: self._limit] for c, v in batch.items()}
         return batch
 
     def min_by(self, value: E.Expr | str, dist: E.Expr, k: int):
@@ -597,7 +604,26 @@ def _eval_predicate(pred, batch, device):
     return np.asarray(E.evaluate(pred, batch, device), bool)
 
 
+# each operator's span; a child's span nests in its parent's
+_OPERATOR_SPANS = {
+    P.PhysicalSeqScan: "sql.scan",
+    P.PhysicalHNSWIndexScan: "sql.scan",
+    P.PhysicalFlatTopN: "sql.scan",
+    P.PhysicalFilter: "sql.filter",
+    P.PhysicalTopN: "sql.topn",
+    P.PhysicalProjection: "sql.project",
+}
+
+
 def _execute_node(node: P.PlanNode, db: Database) -> dict[str, np.ndarray]:
+    if type(node) not in _OPERATOR_SPANS:
+        raise TypeError(f"cannot execute {node!r}")
+    with annotate(_OPERATOR_SPANS[type(node)]):
+        return _run_operator(node, db)
+
+
+def _run_operator(node: P.PlanNode, db: Database) -> dict[str, np.ndarray]:
+    """One operator of _OPERATOR_SPANS over its child's batch."""
     if isinstance(node, P.PhysicalSeqScan):
         batch, _ = node.table.scan()
         return batch
@@ -642,8 +668,6 @@ def _execute_node(node: P.PlanNode, db: Database) -> dict[str, np.ndarray]:
             out[name] = np.asarray(E.evaluate(e, batch, db.device)) \
                 if not isinstance(e, E.ColumnRef) else batch[e.name]
         return out
-
-    raise TypeError(f"cannot execute {node!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ from duckdb_vss_tpu_torch.sql.engine import (
     knn_join,
 )
 from duckdb_vss_tpu_torch.utils.config import FUNCTION_TO_METRIC, BinderError
+from duckdb_vss_tpu_torch.utils.tracing import annotate
 
 AGGREGATES = {"min_by", "max_by", "list", "count", "sum", "avg", "min",
               "max", "bool_and", "bool_or", "first", "any_value"}
@@ -51,7 +52,9 @@ _HOST_FUNCS = {
 def execute_sql(db: Database, sql: str):
     """Execute a SQL script; returns the result of the LAST statement."""
     result = None
-    for stmt in P.parse(sql):
+    with annotate("sql.parse"):
+        stmts = P.parse(sql)
+    for stmt in stmts:
         result = _execute_stmt(db, stmt)
     return result
 
@@ -360,24 +363,27 @@ def _select_table(db: Database, sel: P.SelectStmt, ref: P.TableRef):
             out[name] = np.asarray([_eval_aggregate(db, table, e, batch)],
                                    dtype=object)
         return out
-    qb = QueryBuilder(table)
-    named = _expand_projections(projs, list(table.columns))
-    alias_map = {n: e for n, e in named if not isinstance(e, E.ColumnRef)}
-    for n, e in named:
-        qb.select(e if isinstance(e, E.ColumnRef) and e.name == n
-                  else E.Aliased(e, n) if not isinstance(e, E.Aliased)
-                  else e)
-    if sel.where is not None:
-        qb.where(_strip_qualifiers(sel.where, ref))
-    if sel.order is not None:
-        order = sel.order
-        if isinstance(order, E.ColumnRef) and order.name in alias_map \
-                and order.name not in table.columns:
-            order = alias_map[order.name]
-        qb.order_by(_strip_qualifiers(order, ref), desc=sel.order_desc)
-    if sel.limit is not None:
-        qb.limit(sel.limit)
-    out = qb.execute()
+    with annotate("sql.plan"):
+        qb = QueryBuilder(table)
+        named = _expand_projections(projs, list(table.columns))
+        alias_map = {n: e for n, e in named
+                     if not isinstance(e, E.ColumnRef)}
+        for n, e in named:
+            qb.select(e if isinstance(e, E.ColumnRef) and e.name == n
+                      else E.Aliased(e, n) if not isinstance(e, E.Aliased)
+                      else e)
+        if sel.where is not None:
+            qb.where(_strip_qualifiers(sel.where, ref))
+        if sel.order is not None:
+            order = sel.order
+            if isinstance(order, E.ColumnRef) and order.name in alias_map \
+                    and order.name not in table.columns:
+                order = alias_map[order.name]
+            qb.order_by(_strip_qualifiers(order, ref), desc=sel.order_desc)
+        if sel.limit is not None:
+            qb.limit(sel.limit)
+        plan = qb.plan()
+    out = qb.execute(plan)
     if sel.group_by is not None:
         raise BinderError("GROUP BY over a plain table scan with "
                           "aggregates only")
