@@ -57,6 +57,13 @@ Phases (any failure raises and exits non-zero):
      copies, and what the bound counted before) is printed beside it.
      Then each phase's share of a block's resident clocks
      (tools/k1_phases.py, printed, not checked);
+ 4a. kernel check: K3 (the fused descent) against its plain PyTorch
+     version on path 1's upper table (65,536 rows, l2sq) at B=8192 and
+     B=1: every score within descent_bound (f32 sums in another order),
+     the same slots wherever the plain scores are further apart than
+     twice it, INF_SCORE and -1 past the live rows; then K3's time at
+     both shapes beside its plain version's and its bound (bf16
+     tensor-core operations at B=8192, bytes at B=1);
  4b. one graph per seed: the 1M rows bulk-built a second time on the
      same seed; every graph array (neighbors0, the upper tables,
      levels, entry node, max level, upper count) and n_distances must
@@ -211,6 +218,7 @@ TIMED_B = 8192  # search_device's timed batch and the kernels' timed shape
 N_INSERT = 16_384  # rows added incrementally: 64 batches of 256
 MIN_SELF_RECALL = 0.99  # an inserted row is its own nearest neighbor
 GATHER_TOL = 1e-4  # K2 vs plain, relative to the scores' scale
+DESCENT_BOUND_C = 5  # K3 vs plain: see descent_bound
 RANK_TIMEOUT_S = 300  # a path 5 (e) rank's limit on each collective
 # the first 8 bytes of a native index file (VSS_MAGIC, native/vss_store.cpp)
 NATIVE_MAGIC = (0x30315550_54535356).to_bytes(8, "little")
@@ -562,6 +570,211 @@ def beam_step_ids(idx, qd, expand=4):
     in_beam = (nbrs[:, :, None] == beam[:, None, :]).any(dim=2)
     dup = torch.triu(nbrs[:, :, None] == nbrs[:, None, :], 1).any(dim=1)
     return torch.where((nbrs >= 0) & ~in_beam & ~dup, nbrs, -1).contiguous()
+
+
+def descent_bound(q, table_sq, metric):
+    """Per query, the largest difference two correct f32 computations
+    of its descent scores may show (the bound of tests/test_torch_topk.py,
+    d u (|q|^2 + |v|^2) times DESCENT_BOUND_C for l2sq): the products of
+    bf16 values are exact in f32 on both sides, and only the order of
+    the f32 additions differs, the tensor cores' adder truncating where
+    the plain product rounds (at most 2u an addition against u). [B]
+    float64."""
+    import numpy as np
+
+    q = q.double().cpu().numpy()
+    v_sq_max = float(table_sq.double().max().cpu()) if len(table_sq) else 0.0
+    d = q.shape[1]
+    q_sq = (q * q).sum(1)
+    if metric.value == "l2sq":
+        scale = q_sq + v_sq_max
+    elif metric.value == "cosine":
+        scale = np.ones_like(q_sq)
+    else:
+        scale = np.sqrt(q_sq * v_sq_max) + 1.0
+    return DESCENT_BOUND_C * d * 2.0 ** -24 * scale
+
+
+def descent_reference(q, table, table_sq, nodes, k, metric):
+    """K3's plain version on the same inputs, the table padded with dead
+    rows to a multiple of 16,384 (its blocks; a dead row is never taken
+    before a live one, so the live places are the same)."""
+    import torch
+
+    from duckdb_vss_tpu_torch.ops import fused_descent as fd
+
+    u, d = table.shape
+    pad = -u % 16384 if u > 16384 else 0
+    if pad:
+        table = torch.cat([table, table.new_zeros((pad, d))])
+        table_sq = torch.cat([table_sq, table_sq.new_zeros(pad)])
+        nodes = torch.cat([nodes, nodes.new_full((pad,), -1)])
+    return fd.fused_descent_plain(q, table, table_sq, nodes, k, metric)
+
+
+def compare_descent(name, q, table, table_sq, nodes, metric, k=8):
+    """K3 and its plain version on the same card inputs: every score
+    within descent_bound of the plain one, INF_SCORE and slot -1 exactly
+    past the live rows, and the same slots wherever the plain scores
+    around a place are further apart than twice the bound (in a closer
+    group, the same set; in a group cut by the k-th place, distinct new
+    slots). Returns the largest score difference over the bound."""
+    import numpy as np
+    import torch
+
+    from duckdb_vss_tpu_torch.ops import fused_descent as fd
+    from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
+
+    got_s, got_i = fd.fused_descent(q, table, table_sq, nodes, k, metric)
+    if got_s.is_cuda:  # a fault during the run surfaces here
+        torch.cuda.synchronize()
+    want_s, want_i = descent_reference(q, table, table_sq, nodes, k + 1,
+                                       metric)
+    check(tuple(got_s.shape) == (q.shape[0], k) and got_i.dtype == torch.int32,
+          f"{name}: output {got_i.dtype} {tuple(got_s.shape)}")
+    bound = descent_bound(q, table_sq, metric)
+    got_s, got_i = got_s.cpu().numpy(), got_i.cpu().numpy()
+    want_s, want_i = want_s.cpu().numpy(), want_i.cpu().numpy()
+    live = want_s[:, :k] < INF_SCORE
+    check(bool((got_s[~live] == INF_SCORE).all()
+               and (got_i[~live] == -1).all()),
+          f"{name}: a place past the live rows holds a score or a slot")
+    diff = np.abs(got_s.astype(np.float64) - want_s[:, :k])
+    ratio = float((diff / bound[:, None])[live].max()) if live.any() else 0.0
+    check(ratio <= 1.0, f"{name}: a score differs by {ratio:.2f} x the bound")
+    bad = 0
+    for r in range(got_s.shape[0]):
+        s, tie = want_s[r].astype(np.float64), 2.0 * bound[r]
+        n_live = int(live[r].sum())
+        start = 0
+        while start < n_live:
+            end = start + 1
+            while end <= k and s[end] < INF_SCORE and s[end] - s[end - 1] <= tie:
+                end += 1
+            g, w = got_i[r, start:min(end, k)], want_i[r, start:min(end, k)]
+            if end <= k:
+                bad += set(g.tolist()) != set(w.tolist())
+            else:
+                bad += (len(set(g.tolist())) != len(g)
+                        or bool(set(g.tolist()) & set(got_i[r, :start].tolist())))
+            start = end
+    check(bad == 0, f"{name}: {bad} groups of slots differ beyond ties")
+    log(f"# kernel check {name}: B={q.shape[0]} U={table.shape[0]} "
+        f"D={table.shape[1]} k={k} live places {int(live.sum())} largest "
+        f"score difference {ratio:.3f} x the bound")
+    return ratio
+
+
+def descent_random_inputs(device, b, u, d=128, seed=0, dead=0.05):
+    """Queries and an upper table for K3: SIFT-like magnitudes, a share
+    ``dead`` of the rows dead, a zero row and a zero query (cosine's
+    zero-norm rule), the table's norms taken from its f32 rows as
+    upper_table does."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    vecs = (30.0 * rng.random((u, d))).astype(np.float32)
+    vecs[7 % u] = 0.0
+    nodes = np.arange(u, dtype=np.int32)
+    nodes[rng.random(u) < dead] = -1
+    q = (30.0 * rng.random((b, d))).astype(np.float32)
+    q[b // 2] = 0.0
+    v = torch.from_numpy(vecs).to(device)
+    nd = torch.from_numpy(nodes).to(device)
+    return (torch.from_numpy(q).to(device), v.to(torch.bfloat16),
+            (v * v).sum(1) * (nd >= 0), nd)
+
+
+# K3's other plans, each as (D, B, U, k, share of dead rows): 8, 4, 2
+# and 1 warps a block (D of 256, 1,024, 2,048 and 4,096, several
+# 128-deep panels a tile), lists of 8 places for k below 8 and of 32
+# past it, up to the most seeds the kernel takes; and an insert step of
+# the insert cell (1,572,864 rows reserved): 256 rows against the whole
+# upper-slot table, 393,216 rows of which a sixth live
+DESCENT_PLAN_CASES = ((256, 1808, 65_488, 8, 0.05),
+                      (1024, 1808, 16_400, 8, 0.05),
+                      (2048, 256, 16_400, 8, 0.05),
+                      (4096, 256, 16_400, 8, 0.05),
+                      (128, 1808, 65_488, 4, 0.05),
+                      (1024, 1, 16_400, 4, 0.05),
+                      (128, 1, 65_488, 16, 0.05),
+                      (128, 1808, 65_488, 16, 0.05),
+                      (256, 256, 65_488, 32, 0.05),
+                      (128, 256, 393_216, 8, 5 / 6))
+
+
+def descent_checks_random(device, batches=(1, 256, 1808, 8192),
+                          rows=(65_536, 65_488)):
+    """K3 against its plain version on random tables for every metric:
+    at D=128 and k=8 for every batch and row count (65,488 is no
+    multiple of the kernel's 128-row tile), then at each of
+    DESCENT_PLAN_CASES; also run by the gpu-marked test in
+    tests/test_torch_fused_descent.py. Returns each case's largest
+    score difference over its bound."""
+    from duckdb_vss_tpu_torch.utils.config import MetricKind
+
+    cases = [(128, b, u, 8, 0.05) for u in rows for b in batches]
+    out = {}
+    for d, b, u, k, dead in cases + list(DESCENT_PLAN_CASES):
+        # the D=128, k=8 cases keep the seeds they were first checked on
+        seed = b + u if (d, k) == (128, 8) else b + u + d + 100 * k
+        args = descent_random_inputs(device, b, u, d=d, seed=seed,
+                                     dead=dead)
+        for m in (MetricKind.L2SQ, MetricKind.IP, MetricKind.COSINE):
+            name = f"random-{m.value}-B{b}-U{u}-D{d}-k{k}"
+            out[name] = compare_descent(name, *args, m, k=k)
+    return out
+
+
+def descent_bound_ms(q, table, nodes, k):
+    """The least time of the descent's work on the card: its bf16
+    tensor-core operations (2 d per query and live row) over the peak,
+    or its bytes (the nodes, the live rows with their norms, the
+    queries, the results) over HBM's bandwidth, whichever is longer."""
+    b, d = q.shape
+    live = int((nodes >= 0).sum())
+    ops = 2.0 * b * live * d
+    nbytes = (4 * nodes.shape[0] + live * (2 * d + 4) + 4 * b * d
+              + 8 * b * k)
+    by_ops, by_bytes = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return ((by_ops, "bf16 operations") if by_ops >= by_bytes
+            else (by_bytes, "bytes"))
+
+
+def time_descent(q, table, table_sq, nodes, metric, k=8):
+    """K3's time at one shape (CUDA events over repeated calls), its
+    plain version's, and the bound: (ms, plain ms, bound ms, bound by)."""
+    from duckdb_vss_tpu_torch.ops import fused_descent as fd
+    from duckdb_vss_tpu_torch.utils.timing import device_time
+
+    args = (q, table, table_sq, nodes, k, metric)
+    ms = device_time(lambda: fd.fused_descent(*args), iters=50) * 1e3
+    p_ms = device_time(lambda: fd.fused_descent_plain(*args), iters=5) * 1e3
+    bound, by = descent_bound_ms(q, table, nodes, k)
+    return ms, p_ms, bound, by
+
+
+def descent_engaged(device, n=8192, d=128):
+    """One HNSWIndex.search on the card goes through K3 and never
+    through its plain version (also run by the gpu-marked test)."""
+    import numpy as np
+
+    from duckdb_vss_tpu_torch import HNSWConfig
+    from duckdb_vss_tpu_torch.models.hnsw import HNSWIndex
+    from duckdb_vss_tpu_torch.ops import fused_descent as fd
+
+    rng = np.random.default_rng(5)
+    idx = HNSWIndex(d, HNSWConfig(), capacity=n, device=device)
+    idx.add(rng.random((n, d)).astype(np.float32), np.arange(n))
+    launches, calls = fd.fused_descent.launches, fd.fused_descent_plain.calls
+    idx.search(rng.random((100, d)).astype(np.float32), 10)
+    check(fd.fused_descent.launches > launches,
+          "HNSWIndex.search did not launch K3")
+    check(fd.fused_descent_plain.calls == calls,
+          "HNSWIndex.search ran K3's plain version")
+    log(f"# K3 engaged: {fd.fused_descent.launches - launches} launch(es) "
+        "for one search, its plain version never")
 
 
 def gather_bound_ms(ids, d):
@@ -2279,6 +2492,9 @@ def path5_nccl(dev, vecs, q, smi, seed, n_shards, cap, n_chunks, a, k=K):
               f"search, not {s_local} x {n_chunks}")
         check(rank["plain_calls"] == 0, f"(e): rank {r} ran K1's plain "
               "version in a search")
+        check(rank["k3_total"] > 0 and rank["k3_plain_calls"] == 0,
+              f"(e): rank {r} launched K3 {rank['k3_total']} times and ran "
+              f"its plain version {rank['k3_plain_calls']} times")
     check(digest == a["digest"], "(e): rank 0's file differs from (a)'s")
     # the only host syncs of a search: the queries' upload, once a chunk
     # before any K1 launch or gather, and the scores' and ids' downloads,
@@ -2313,7 +2529,8 @@ def path5_nccl(dev, vecs, q, smi, seed, n_shards, cap, n_chunks, a, k=K):
             "e_first_collective_s": r0["first_collective_s"],
             "e_k1_err": max(r["k1_err"] for r in ranks),
             "e_k1_launches": [r["k1_total"] for r in ranks],
-            "e_k2_launches": [r["k2_total"] for r in ranks]}
+            "e_k2_launches": [r["k2_total"] for r in ranks],
+            "e_k3_launches": [r["k3_total"] for r in ranks]}
 
 
 def run_ranks(out_dir, seed, world=2, backend="gloo", timeout_s=600):
@@ -2429,6 +2646,7 @@ def nccl_rank(opts) -> int:
 
     from duckdb_vss_tpu_torch import HNSWConfig, MetricKind
     from duckdb_vss_tpu_torch.ops import fused_beam as fb
+    from duckdb_vss_tpu_torch.ops import fused_descent as fd
     from duckdb_vss_tpu_torch.ops import fused_gather as fg
     from duckdb_vss_tpu_torch.parallel import sharded as tsh
     from duckdb_vss_tpu_torch.utils.timing import device_time
@@ -2521,6 +2739,8 @@ def nccl_rank(opts) -> int:
         res["flat_s"], res["flat_k"] = flat.search(q, K)
         out["k1_total"] = fb.fused_beam_search.launches
         out["k2_total"] = fg.gather_scores_kernel.launches
+        out["k3_total"] = fd.fused_descent.launches
+        out["k3_plain_calls"] = fd.fused_descent_plain.calls
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(opts.out, f"rank{r}.npz"), **res)
@@ -2571,6 +2791,7 @@ def main(argv=None) -> int:
     from duckdb_vss_tpu_torch.models.hnsw import HNSWIndex
     from duckdb_vss_tpu_torch.ops import cuda_build
     from duckdb_vss_tpu_torch.ops import fused_beam as fb
+    from duckdb_vss_tpu_torch.ops import fused_descent as fd
     from duckdb_vss_tpu_torch.ops import fused_gather as fg
     from duckdb_vss_tpu_torch.tools import k1_phases
     from duckdb_vss_tpu_torch.utils.timing import device_time
@@ -2587,9 +2808,10 @@ def main(argv=None) -> int:
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
-    build_logs = cuda_build.build([fb.KERNEL, fg.KERNEL])
-    log(f"# nvcc build of {os.path.relpath(fb.SOURCE, here)} and "
-        f"{os.path.relpath(fg.SOURCE, here)} (in parallel): "
+    build_logs = cuda_build.build([fb.KERNEL, fg.KERNEL, fd.KERNEL])
+    log(f"# nvcc build of {os.path.relpath(fb.SOURCE, here)}, "
+        f"{os.path.relpath(fg.SOURCE, here)} and "
+        f"{os.path.relpath(fd.SOURCE, here)} (in parallel): "
         f"{time.perf_counter() - t0:.2f} s")
     for name, build_log in build_logs.items():
         for line in build_log.splitlines():
@@ -2610,6 +2832,7 @@ def main(argv=None) -> int:
     def zero_counts():
         fb.fused_beam_search.launches = fb.beam_search_plain.calls = 0
         fg.gather_scores_kernel.launches = fg.gather_scores_plain.calls = 0
+        fd.fused_descent.launches = fd.fused_descent_plain.calls = 0
         port_graph.beam_search.steps = 0
 
     zero_counts()
@@ -2629,6 +2852,8 @@ def main(argv=None) -> int:
     search_s = time.perf_counter() - t0
     k1_launches = fb.fused_beam_search.launches
     plain_calls = fb.beam_search_plain.calls
+    k3_launches = fd.fused_descent.launches
+    k3_plain_calls = fd.fused_descent_plain.calls
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     phases = {p: round(s, 3) for p, s in idx.build_stats["phase_s"].items()}
     log(f"# build: {build_s:.2f} s ({n / build_s:.0f} vec/s) phases {phases}")
@@ -2636,7 +2861,9 @@ def main(argv=None) -> int:
     log(f"# search: {nq} queries in {search_s:.3f} s = {nq / search_s:.0f} "
         f"QPS (host arrays in and out, ef_search {config.ef_search})")
     log(f"# K1 launches on the main path: {k1_launches}; plain version "
-        f"calls: {plain_calls}; peak device memory {peak_gb:.2f} GiB")
+        f"calls: {plain_calls}; K3 launches {k3_launches}, its plain "
+        f"version's calls {k3_plain_calls}; peak device memory "
+        f"{peak_gb:.2f} GiB")
 
     flat = FlatIndex(d, MetricKind.L2SQ, capacity=n, device=dev)
     flat.add(vecs, keys)
@@ -2655,6 +2882,8 @@ def main(argv=None) -> int:
     check(recall >= MIN_RECALL, f"recall@{k} {recall} < {MIN_RECALL}")
     check(k1_launches > 0, "the main path never launched kernel K1")
     check(plain_calls == 0, "the main path ran K1's plain version")
+    check(k3_launches > 0, "the main path never launched kernel K3")
+    check(k3_plain_calls == 0, "the main path ran K3's plain version")
     qd = idx.store.prepare_queries(q[:TIMED_B])
     dev_s = device_time(lambda: idx.search_device(qd, k), iters=5)
     log(f"# search_device ({TIMED_B} queries on the card): {dev_s * 1e3:.2f} "
@@ -2690,6 +2919,29 @@ def main(argv=None) -> int:
         f"{k128_ms:.3f} ms; {tail}")
     del args
 
+    # ---- 4a. K3, the fused descent, at the main path's shapes -------------
+    upper = idx._upper_vectors()
+    # a batch chunk, the last chunk of a 10,000-query call, a statement
+    k3_err = max(compare_descent(f"1M-l2sq-B{b}", qd[:b], *upper,
+                                 MetricKind.L2SQ)
+                 for b in (TIMED_B, nq % TIMED_B, 1))
+    w3 = fd.block_warps(d, 8)
+    smem3 = fd.smem_bytes(w3, d)
+    s3 = fd.n_slices(TIMED_B, upper[0].shape[0], w3,
+                     fd.resident_blocks(dev, w3, 8, smem3))
+    log(f"# K3's plan at D={d}: {w3} warps a block, {smem3} bytes of "
+        f"dynamic shared memory, {s3} slices at B={TIMED_B}")
+    k3 = {}
+    for b in (TIMED_B, 1):
+        ms3, p_ms3, bound3, by3 = time_descent(qd[:b], *upper,
+                                               MetricKind.L2SQ)
+        k3[b] = dict(ms=ms3, plain_ms=p_ms3, bound_ms=bound3, bound_by=by3)
+        log(f"# K3 on {smi} at B={b}, U={upper[0].shape[0]} "
+            f"({int((upper[2] >= 0).sum())} live), D={d}, k 8: {ms3:.4f} ms;"
+            f" plain {p_ms3:.3f} ms; bound {bound3:.4f} ms ({by3}), the "
+            f"kernel at {bound3 / ms3:.1%} of it")
+    del upper
+
     # ---- 4b. one graph per seed: the same rows built a second time -------
     err_second, again = second_build(idx, vecs, keys, q, kw, smi)
     err = max(err, err_second)
@@ -2700,12 +2952,13 @@ def main(argv=None) -> int:
     p6 = path6(idx, q, want, smi, dev_s * 1e3)
     k1_launches_6 = fb.fused_beam_search.launches
     k2_launches_6 = fg.gather_scores_kernel.launches
+    k3_launches_6 = fd.fused_descent.launches
     p6["s"] = time.perf_counter() - t0
     log(f"# path 6 on {smi}: {p6['s']:.1f} s; K1 launches {k1_launches_6} "
         f"(dryrun_multichip(4): {p6['c4_k1']}, (8): {p6['c8_k1']}; on the "
         f"grids {p6['c4grid_k1']} and {p6['c8grid_k1']}), plain "
         f"version calls {fb.beam_search_plain.calls}; K2 launches "
-        f"{k2_launches_6}; measured "
+        f"{k2_launches_6}; K3 launches {k3_launches_6}; measured "
         + json.dumps({name: round(v, 4) for name, v in p6.items()}))
     check(p6["c4_k1"] > 0 and p6["c8_k1"] > 0,
           "a dry run never launched K1")
@@ -2713,6 +2966,7 @@ def main(argv=None) -> int:
     check(p6["c4grid_k1"] == 4 * 4 and p6["c8grid_k1"] == 4 * 8,
           "a dry run on the grid did not launch K1 once per slot per search")
     check(fb.beam_search_plain.calls == 0, "path 6 ran K1's plain version")
+    check(fd.fused_descent_plain.calls == 0, "path 6 ran K3's plain version")
     err = max(err, dryrun_kernel_checks())
 
     # ---- 5. main path 2: incremental insert, then both searches ---------
@@ -2783,6 +3037,22 @@ def main(argv=None) -> int:
     check(k2_plain_calls == 0, "the main path ran K2's plain version")
     check(k1_in_b == 0, "(b): the flat-layout search launched K1")
     check(plain_calls_2 == 0, "the main path ran K1's plain version")
+    check(fd.fused_descent_plain.calls == 0,
+          "path 2 ran K3's plain version")
+    k3_launches_2 = fd.fused_descent.launches
+    check(k3_launches_2 > 0, "path 2 never launched K3")
+    # K3 at the insert's shape: one batch of the inserted rows against
+    # the whole upper-slot table, as insert_batch's phase B passes it
+    # (mostly dead rows, no multiple of 16,384 in general)
+    g = idx.graph
+    u_safe = g.upper_node.clamp_min(0).long()
+    k3_err = max(k3_err, compare_descent(
+        f"insert-l2sq-B{idx.build_batch}",
+        idx.store.prepare_queries(new[:idx.build_batch]),
+        idx.store._vectors[u_safe].to(torch.bfloat16),
+        idx.store._vec_sq[u_safe] * (g.upper_node >= 0), g.upper_node,
+        MetricKind.L2SQ))
+    del g, u_safe
     dev_b_s = device_time(lambda: idx.search_device(qd, k), iters=3)
     log(f"# (b) search_device on {smi} ({TIMED_B} queries on the card): "
         f"{dev_b_s * 1e3:.2f} ms = {TIMED_B / dev_b_s:.0f} QPS")
@@ -2837,6 +3107,7 @@ def main(argv=None) -> int:
                make_rows, smi)
     k1_launches_3 = fb.fused_beam_search.launches
     k2_launches_3 = fg.gather_scores_kernel.launches
+    k3_launches_3 = fd.fused_descent.launches
     log(f"# path 3 on {smi}: {time.perf_counter() - t0:.1f} s; K1 launches "
         f"{k1_launches_3}, plain version calls {fb.beam_search_plain.calls}"
         f"; K2 launches {fg.gather_scores_kernel.launches}; measured "
@@ -2844,6 +3115,9 @@ def main(argv=None) -> int:
     check(k1_launches_3 > 0, "path 3 never launched K1")
     check(fb.beam_search_plain.calls == 0,
           "path 3 ran K1's plain version")
+    check(k3_launches_3 > 0, "path 3 never launched K3")
+    check(fd.fused_descent_plain.calls == 0,
+          "path 3 ran K3's plain version")
 
     # ---- 9. main path 4: the SQL layer on a database on the card --------
     del idx, store, step_ids, g_args  # path 4 builds its own index
@@ -2855,6 +3129,7 @@ def main(argv=None) -> int:
         p4 = path4(dev, vecs, q, want, new, smi, tmp)
     k1_launches_4 = fb.fused_beam_search.launches
     k2_launches_4 = fg.gather_scores_kernel.launches
+    k3_launches_4 = fd.fused_descent.launches
     log(f"# path 4 on {smi}: {time.perf_counter() - t0:.1f} s; K1 launches "
         f"{k1_launches_4}, plain version calls {fb.beam_search_plain.calls}"
         f"; K2 launches {fg.gather_scores_kernel.launches}; peak device "
@@ -2864,6 +3139,9 @@ def main(argv=None) -> int:
     check(k1_launches_4 > 0, "path 4 never launched K1")
     check(fb.beam_search_plain.calls == 0,
           "path 4 ran K1's plain version")
+    check(k3_launches_4 > 0, "path 4 never launched K3")
+    check(fd.fused_descent_plain.calls == 0,
+          "path 4 ran K3's plain version")
 
     # ---- 10. main path 5: the sharded index on the one card -------------
     torch.cuda.empty_cache()
@@ -2873,12 +3151,14 @@ def main(argv=None) -> int:
     p5, two = path5(dev, vecs, q, want, smi, opts.seed, nq / search_s)
     k1_launches_5 = fb.fused_beam_search.launches
     k2_launches_5 = fg.gather_scores_kernel.launches
+    k3_launches_5 = fd.fused_descent.launches
     # search_memory reset the peak counters inside path 5
     peak5_gb = max(p5.pop("peak_before_gib"),
                    torch.cuda.max_memory_allocated() / 2**30)
     # each NCCL rank's launches in path 5 (e), counted in its process:
     # their sum is the seventh path, each rank's in ..._by_rank
     k1_ranks, k2_ranks = p5.pop("e_k1_launches"), p5.pop("e_k2_launches")
+    k3_ranks = p5.pop("e_k3_launches")
     log(f"# path 5 on {smi}: {time.perf_counter() - t0:.1f} s; K1 launches "
         f"{k1_launches_5}, plain version calls {fb.beam_search_plain.calls}"
         f"; K2 launches {k2_launches_5}; peak device memory "
@@ -2886,6 +3166,8 @@ def main(argv=None) -> int:
         + json.dumps({name: round(v, 4) for name, v in p5.items()}))
     check(k1_launches_5 > 0, "path 5 never launched K1")
     check(fb.beam_search_plain.calls == 0, "path 5 ran K1's plain version")
+    check(k3_launches_5 > 0, "path 5 never launched K3")
+    check(fd.fused_descent_plain.calls == 0, "path 5 ran K3's plain version")
     # K1 at the sharded search's default shape, on shard 0's tables
     ef32 = dict(kw, ef=32, max_steps=16)
     err32 = compare_beam("shard0-l2sq-ef32", sharded_beam_inputs(
@@ -2937,6 +3219,25 @@ def main(argv=None) -> int:
         "plain_ms": p2_ms,
         "bound_ms": bound2_ms,
         "bound_by": bound2_by,
+        "library_ms": None,
+    }, {
+        "name": "fused_descent",
+        "route": "cuda",
+        "source": "duckdb_vss_tpu_torch/csrc/fused_descent.cu",
+        "replaces": None,
+        "launches": (k3_launches + k3_launches_2 + k3_launches_3
+                     + k3_launches_4 + k3_launches_5 + k3_launches_6
+                     + sum(k3_ranks)),
+        "launches_by_path": [k3_launches, k3_launches_2, k3_launches_3,
+                             k3_launches_4, k3_launches_5, k3_launches_6,
+                             sum(k3_ranks)],
+        "launches_by_rank_5e": k3_ranks,
+        "max_err_over_bound": k3_err,
+        "ms": k3[TIMED_B]["ms"],
+        "plain_ms": k3[TIMED_B]["plain_ms"],
+        "bound_ms": k3[TIMED_B]["bound_ms"],
+        "bound_by": k3[TIMED_B]["bound_by"],
+        "b1": k3[1],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

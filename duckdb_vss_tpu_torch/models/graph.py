@@ -11,7 +11,8 @@ Layout, as in the JAX package:
   refreshes the rows an insert batch changed.
 
 Search: a descent picks base-layer seeds (mxu_descent scores every
-upper-level node; beam_descent walks the upper levels), the base-layer
+upper-level node, through kernel K3, ops/fused_descent.py, on the card;
+beam_descent walks the upper levels), the base-layer
 beam runs either through the fused kernel K1 (ops/fused_beam.py, ef <=
 128 and expand <= 8 over the int8 layout) or through ``beam_search``,
 the step-by-step beam, whose per-step scoring reads the int8 tiles, or
@@ -32,15 +33,15 @@ a candidate with one row gather and no norm gather.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
 
 from duckdb_vss_tpu_torch.ops.distance import ieee_sqrt
 from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search, pack_meta
+from duckdb_vss_tpu_torch.ops.fused_descent import fused_descent
 from duckdb_vss_tpu_torch.ops.fused_gather import gather_scores_kernel
-from duckdb_vss_tpu_torch.ops.topk import flat_topk, smallest_k
+from duckdb_vss_tpu_torch.ops.topk import smallest_k
 from duckdb_vss_tpu_torch.utils.config import MetricKind
 from duckdb_vss_tpu_torch.utils.padding import INF_SCORE, pad_dim
 from duckdb_vss_tpu_torch.utils.tracing import annotate, count, span
@@ -555,17 +556,15 @@ def mxu_descent(
     n_seeds: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact coarse routing: score EVERY upper-level node against every
-    query (one blockwise product over a ~1/M fraction of the index) and
-    take the best n_seeds as base-layer seeds. Returns (seeds [B,
-    n_seeds] int32, n_dist [])."""
+    query (a ~1/M fraction of the index) and take the best n_seeds as
+    base-layer seeds: kernel K3 on the card, whose scores never reach
+    device memory, its plain version (flat_topk over blocks) on the
+    CPU. Returns (seeds [B, n_seeds] int32, n_dist [])."""
     b = queries.shape[0]
     live = upper_node >= 0
     n_dist = live.sum() * b
-    # the upper table of a 1.5 x 2^k capacity bucket is no multiple of
-    # 16384 rows: take the largest power of two that divides it
-    score, slot = flat_topk(
-        queries, upper_vecs, n_seeds, metric, vec_sq=upper_vec_sq,
-        valid=live, block_n=math.gcd(16384, upper_vecs.shape[0]))
+    score, slot = fused_descent(queries, upper_vecs, upper_vec_sq,
+                                upper_node, n_seeds, metric)
     seeds = torch.where(score < INF_SCORE,
                         upper_node[slot.clamp_min(0).long()], -1)
     # no upper level yet: fall back to the entry node as the only seed

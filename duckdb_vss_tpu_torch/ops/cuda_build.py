@@ -22,6 +22,10 @@ MAX_SMEM_BYTES = 232_448
 # the Metric enum of every csrc/*.cu
 METRIC_CODE = {MetricKind.L2SQ: 0, MetricKind.IP: 1, MetricKind.COSINE: 2}
 
+# the kernels every search runs: the first of them to load builds all
+# that are stale, their nvcc processes side by side
+SEARCH_KERNELS = ("fused_descent", "fused_beam")
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
@@ -70,13 +74,23 @@ def build(names: list[str]) -> dict[str, str]:
     return logs
 
 
+def stale(name: str) -> bool:
+    """Whether the kernel's library is missing or older than its
+    source."""
+    lib = library_path(name)
+    return (not lib.exists()
+            or lib.stat().st_mtime < source_path(name).stat().st_mtime)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's library, built first unless one newer than its
-    source exists."""
-    lib, src = library_path(name), source_path(name)
-    if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
-        build([name])
-    return ctypes.CDLL(str(lib))
+    source exists. A kernel of SEARCH_KERNELS is built with every other
+    kernel of that set that is stale too (their nvcc runs beside this
+    one's), so the next of them to load finds its library built."""
+    if stale(name):
+        group = SEARCH_KERNELS if name in SEARCH_KERNELS else (name,)
+        build([name] + [n for n in group if n != name and stale(n)])
+    return ctypes.CDLL(str(library_path(name)))
 
 
 def check_tensor(t, name, dtype, shape, device) -> None:

@@ -233,7 +233,8 @@ beam_search_plain.calls = 0
 
 def _library() -> ctypes.CDLL:
     """The kernel library, built at first use in this process (or reused
-    when it is newer than its source) and bound through ctypes."""
+    when it is newer than its source; with K3's when that is stale too,
+    cuda_build.SEARCH_KERNELS) and bound through ctypes."""
     global _lib
     if _lib is None:
         lib = cuda_build.load(KERNEL)

@@ -45,7 +45,8 @@ contract between the program and the benchmark, portbench/):
   every operator of search_graph runs inside one of them. Counters
   ``search.queries`` (rows searched), ``search.distances`` (the n_dist
   search_graph returns), ``k1.distances`` and ``k1.expansions`` (K1's
-  returned counts).
+  returned counts), ``descent.kernel_queries`` (the queries kernel K3,
+  the fused descent, took: counted at its launch, ops/fused_descent.py).
 - SQL (sql/): ``sql.execute`` (all of Database.execute) holds
   ``sql.parse``, then per statement ``sql.plan`` (binding, the
   index-scan rewrite), the operators ``sql.scan`` (``index.search``
@@ -64,7 +65,7 @@ contract between the program and the benchmark, portbench/):
 
 The trace records host activity, and the card's when CUDA is available:
 every PyTorch operator and the kernels it launched, and the package's
-own kernels K1 and K2 (launched through ctypes, so no operator names
+own kernels K1, K2 and K3 (launched through ctypes, so no operator names
 them; CUPTI records them as kernels all the same).
 """
 
