@@ -35,7 +35,8 @@ import torch
 
 from duckdb_vss_tpu_torch.models.build import insert_batch
 from duckdb_vss_tpu_torch.models.bulk import bulk_build
-from duckdb_vss_tpu_torch.models.flat import TRANSFER_DTYPES, FlatIndex
+from duckdb_vss_tpu_torch.models.flat import (TRANSFER_DTYPES, FlatIndex,
+                                              PinnedBuffer)
 from duckdb_vss_tpu_torch.models.graph import (L_MAX, GraphState,
                                                gather_scores, greedy_descent,
                                                grow_graph, make_aug_table,
@@ -161,6 +162,10 @@ class HNSWIndex:
         self._aug_cache = None
         self._upper_cache = None
         self._nbr_cache = None
+        # search's page-locked staging on a card: the queries on their
+        # way up and the results on their way down
+        self._pinned_in = PinnedBuffer()
+        self._pinned_out = PinnedBuffer()
         self._level_rng = np.random.default_rng(seed)
         # distance counters (usearch computed_distances); the search
         # count's newest part stays on the device until it is read
@@ -394,30 +399,57 @@ class HNSWIndex:
         to a multiple of 16; hop_rerank defaults to the index's setting;
         loop is the step-by-step beam's form (graph.beam_search). Queries
         go to the device as ``query_transfer_dtype``, in chunks of
-        ``chunk`` rows; every chunk's results come back in one host
-        transfer. Returns (scores, keys [B, k])."""
+        ``chunk`` rows; on a card each chunk is staged in page-locked
+        memory and copied up without waiting, so the host prepares and
+        issues the next chunk while the card runs this one. The slots
+        become keys on the device, and every chunk's scores and keys come
+        back in one copy after the call's one wait. Returns (scores, keys
+        [B, k]), arrays of the caller's own."""
         self._ensure_loaded()
         qarr = np.asarray(queries, np.float32)
         if qarr.ndim == 1:
             qarr = qarr[None, :]
+        if qarr.shape[0] == 0:
+            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int64))
+        stage = None
+        if self.device.type == "cuda":
+            self._pinned_in.start()
+            stage = self._pinned_in.take
         outs = []
         for off in range(0, qarr.shape[0], chunk):
             with annotate("index.upload"):
                 q = self.store.prepare_queries(qarr[off:off + chunk],
-                                               self.query_transfer_dtype)
+                                               self.query_transfer_dtype,
+                                               stage)
             outs.append(self.search_device(q, k, ef, expand, max_steps,
                                            n_seeds, hop_rerank, descent_ef,
                                            loop))
-        if not outs:
-            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int64))
         self._add_search_distances(sum(o[2] for o in outs))
         with annotate("index.download"):
-            scores = torch.cat([o[0] for o in outs]).cpu().numpy()
-            slots = torch.cat([o[1] for o in outs]).cpu().numpy()
-            keys = np.where(slots >= 0,
-                            self.store._keys[np.maximum(slots, 0)],
-                            np.int64(-1))
-        return scores, keys
+            keys = self.store.keys_of(torch.cat([o[1] for o in outs]))
+            return self._fetch(torch.cat([o[0] for o in outs]), keys)
+
+    def _fetch(self, scores: torch.Tensor, keys: torch.Tensor
+               ) -> tuple[np.ndarray, np.ndarray]:
+        """Device scores [B, k] f32 and keys [B, k] int64 as fresh host
+        arrays, in one copy: packed as int32 words [B, 3k] (the scores'
+        bits, then the keys' halves). On a card the copy goes into the
+        pinned output buffer without waiting, then the host waits once,
+        counted as ``index.host_waits``; the arrays are copies, since the
+        buffer is written again by the next call."""
+        k = scores.shape[1]
+        words = torch.cat([scores.view(torch.int32), keys.view(torch.int32)],
+                          1)
+        if self.device.type == "cuda":
+            self._pinned_out.start()
+            host = self._pinned_out.take(words.shape, words.dtype)
+            host.copy_(words, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            count("index.host_waits", 1)
+            words = host
+        words = words.numpy()
+        return (words[:, :k].copy().view(np.float32),
+                words[:, k:].copy().view(np.int64))
 
     def search_device(self, queries_padded: torch.Tensor, k: int,
                       ef: int | None = None, expand: int = 4,
@@ -587,6 +619,7 @@ class HNSWIndex:
             return False
         st._key_to_slot[int(new_key)] = slot
         st._keys[slot] = int(new_key)
+        st.keys_changed()
         self.is_dirty = True
         return True
 

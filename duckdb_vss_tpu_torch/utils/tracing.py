@@ -37,8 +37,12 @@ contract between the program and the benchmark, portbench/):
 
 - index API (models/hnsw.py): ``index.search`` holds ``index.upload``
   (a chunk's prepare_queries and its copy to the device) and
-  ``index.download`` (scores and slots to the host, the key map);
-  ``index.add`` holds the insert's spans.
+  ``index.download`` (the key map on the device, scores and keys to
+  the host); ``index.add`` holds the insert's spans. Counter
+  ``index.host_waits``: each point where ``index.search`` blocks the
+  host on the card (the one wait for a call's results, and the copy of
+  the key table to the card at the first search after a write into it;
+  none on the CPU).
 - search (models/graph.py, search_graph): ``search.descent`` (mxu or
   beam descent), ``search.seed`` (seed_beam), ``search.beam`` (K1, or
   the step-by-step beam_search), ``search.finish`` (_finish_search);
