@@ -382,8 +382,9 @@ def path_beam_inputs(idx, queries_np, ef):
 
     qd = idx.store.prepare_queries(queries_np)
     q_sq = (qd * qd).sum(-1)
-    uv, uvsq, unode = idx._upper_vectors()
-    nv, _scale, _sq, meta = idx._neighborhood_tables()
+    uv, uvsq, unode = idx.tables.upper()
+    nv, _scale, _sq, meta = idx.tables.neighborhood(idx.layout,
+                                                    idx.nbr_budget_bytes)
     seeds, _ = mxu_descent(uv, uvsq, unode, idx.graph.entry_node, qd,
                            idx.metric, 8)
     seed_s, seed_i = seed_beam(idx.store._vectors, idx.store._vec_sq, seeds,
@@ -400,7 +401,7 @@ def search_stages(idx, qd, args, kw, k, search_ms, k1_ms):
 
     st = idx.store
     q_sq = (qd * qd).sum(-1)
-    uv, uvsq, unode = idx._upper_vectors()
+    uv, uvsq, unode = idx.tables.upper()
     seeds, _ = mxu_descent(uv, uvsq, unode, idx.graph.entry_node, qd,
                            idx.metric, 8)
     s, i, _, _ = fused_beam_search(*args, **kw)
@@ -558,7 +559,7 @@ def beam_step_ids(idx, qd, expand=4):
 
     from duckdb_vss_tpu_torch.models.graph import mxu_descent, seed_beam
 
-    uv, uvsq, unode = idx._upper_vectors()
+    uv, uvsq, unode = idx.tables.upper()
     seeds, _ = mxu_descent(uv, uvsq, unode, idx.graph.entry_node, qd,
                            idx.metric, 8)
     _, beam = seed_beam(idx.store._vectors, idx.store._vec_sq, seeds, qd,
@@ -1036,7 +1037,8 @@ def path3(idx, all_vecs, extra_keys, q, n_base, want_base, make_rows, smi,
     # augmented table, ef 64
     idx.layout, idx.use_aug = "flat", True
     search_checked("aug", ef=64)
-    idx.use_aug, idx._aug_cache = False, None
+    idx.use_aug = False
+    idx.tables.drop("aug")
     search_checked("flat_bf16", ef=64)
     idx.layout = "auto"
 
@@ -1504,7 +1506,7 @@ def second_insert(idx, again, new, new_keys, q, kw, smi, steps_first):
                 (fg.gather_scores_plain, "calls"),
                 (port_graph.beam_search, "steps"))
     saved = [getattr(fn, name) for fn, name in counters]
-    check(again._nbr_cache is not None,
+    check("nbr" in again.tables.built,
           "the second build has no int8 layout before its insert")
     _, insert_s = timed(again.device, lambda: again.add(new, new_keys))
     steps = port_graph.beam_search.steps - saved[-1]
@@ -1517,8 +1519,9 @@ def second_insert(idx, again, new, new_keys, q, kw, smi, steps_first):
     if not np.array_equal(idx.store._keys, again.store._keys):
         differ.append("store._keys")
     differ += [name for name, a, b in zip(
-        ("nbr_vecs", "nbr_scale", "nbr_sq", "nbr_meta"), idx._nbr_cache,
-        again._nbr_cache) if not torch.equal(a, b)]
+        ("nbr_vecs", "nbr_scale", "nbr_sq", "nbr_meta"),
+        idx.tables.built["nbr"], again.tables.built["nbr"])
+        if not torch.equal(a, b)]
     nd1, nd2 = idx.build_distance_count, again.build_distance_count
     first = fb.fused_beam_search(*path_beam_inputs(idx, q[:TIMED_B], 64),
                                  **kw)
@@ -1579,8 +1582,8 @@ def path6(idx, q, want, smi, search_ms, k=K):
           f"(6a): recall {out['a_recall']} < {MIN_RECALL}")
     # (b) the same step at full width, on the 1M index of path 1
     st = idx.store
-    trav = idx._traversal_vectors()
-    uv, uvsq, unode = idx._upper_vectors()
+    trav = idx.tables.traversal()
+    uv, uvsq, unode = idx.tables.upper()
 
     def step(qd):
         return fn(idx.graph, st._vectors, st._vec_sq, st._valid, qd, trav,
@@ -1724,17 +1727,23 @@ def sharded_beam_inputs(sh, queries_np, ef, shard=0, row=0):
     from duckdb_vss_tpu_torch.models.graph import mxu_descent, seed_beam
     from duckdb_vss_tpu_torch.utils.padding import pad_2d_np
 
-    use_nbr = sh._tables()
-    check(use_nbr, "the sharded index runs without the int8 layout")
-    st, vectors, vec_sq, _, kw = sh._shard_args(row, shard, use_nbr)
+    check(sharded_layout_on(sh),
+          "the sharded index runs without the int8 layout")
+    tables = sh.search_tables()[(row, shard)]
+    st, vectors, vec_sq = sh._source(shard, row)
     qd = torch.from_numpy(pad_2d_np(queries_np, len(queries_np),
                                     sh.d_pad)).to(vectors.device)
     q_sq = (qd * qd).sum(-1)
     metric = sh.config.metric
-    seeds, _ = mxu_descent(kw["upper_vecs"], kw["upper_vec_sq"],
-                           kw["upper_nodes"], st.entry_node, qd, metric, 4)
+    seeds, _ = mxu_descent(*tables.upper, st.entry_node, qd, metric, 4)
     seed_s, seed_i = seed_beam(vectors, vec_sq, seeds, qd, q_sq, metric, ef)
-    return (qd, q_sq, seed_s, seed_i, kw["nbr_meta"], kw["nbr_vecs"])
+    return (qd, q_sq, seed_s, seed_i, tables.meta, tables.tiles[0])
+
+
+def sharded_layout_on(sh):
+    """Whether every shard of every replica row searches through the
+    int8 layout and K1 (its tables built on the way)."""
+    return all(t.meta is not None for t in sh.search_tables().values())
 
 
 def card_slots(n):
@@ -1999,7 +2008,8 @@ def path5(dev, vecs, q, want, smi, seed, single_qps, k=K, n_shards=4,
         f"{sh.counts.tolist()}, capacity per shard {sh.cap}")
     check(sh.cap == cap, f"the capacity grew to {sh.cap}: K1 would leave")
     _, out["layout_s"] = timed(dev, lambda: sh.search(q[:64], k))
-    check(sh._tables(), "the sharded search runs without the int8 layout")
+    check(sharded_layout_on(sh),
+          "the sharded search runs without the int8 layout")
     ef_def = ef_local_policy(sh.config.ef_search, k, n_shards)
     before = fb.fused_beam_search.launches
     (s_def, k_def), out["search_s"] = timed(dev, lambda: sh.search(q, k))
@@ -2174,7 +2184,7 @@ def path5_grid(dev, vecs, q, smi, n_shards, cap, n_chunks, dead, a, k=K):
     gs = ShardedHNSWIndex(d, HNSWConfig(), mesh, capacity_per_shard=cap)
     _, out["d_build_s"] = timed(dev, lambda: gs.add(vecs, np.arange(n)))
     check(gs.cap == cap, f"(d): the capacity grew to {gs.cap}")
-    check(gs._tables(), "(d): the grid runs without the int8 layout")
+    check(sharded_layout_on(gs), "(d): the grid runs without the int8 layout")
     gs.search(q[:64], k)
     results = {}
     for ef_local in (None, 64):
@@ -2317,7 +2327,7 @@ def path5_replicas(dev, vecs, q, dead, k=K, n_shards=2, n_q=2,
     ref = ShardedHNSWIndex(d, HNSWConfig(), make_mesh(n_shards, device=dev),
                            capacity_per_shard=cap)
     _, out["r_ref_build_s"] = timed(dev, lambda: ref.add(vecs, keys))
-    check(ref.cap == cap and ref._tables(),
+    check(ref.cap == cap and sharded_layout_on(ref),
           "replica rows: the reference left the int8 layout")
     slots = card_slots(n_q * n_shards)
     mesh = make_mesh(n_shards, n_q=n_q, devices=slots)
@@ -2325,7 +2335,7 @@ def path5_replicas(dev, vecs, q, dead, k=K, n_shards=2, n_q=2,
     with replica_sync_clock() as spent:
         _, out["r_build_s"] = timed(dev, lambda: gs.add(vecs, keys))
     out["r_sync_add_s"] = spent[0]
-    check(gs.cap == cap and gs._tables(),
+    check(gs.cap == cap and sharded_layout_on(gs),
           "replica rows: the grid left the int8 layout")
     gs.search(q[:64], k)
     out["r_card_gib"] = [torch.cuda.memory_allocated(i) / 2**30
@@ -2920,7 +2930,7 @@ def main(argv=None) -> int:
     del args
 
     # ---- 4a. K3, the fused descent, at the main path's shapes -------------
-    upper = idx._upper_vectors()
+    upper = idx.tables.upper()
     # a batch chunk, the last chunk of a 10,000-query call, a statement
     k3_err = max(compare_descent(f"1M-l2sq-B{b}", qd[:b], *upper,
                                  MetricKind.L2SQ)
@@ -2975,7 +2985,8 @@ def main(argv=None) -> int:
     new_keys = np.arange(n, n + N_INSERT, dtype=np.int64)
     again_gb = sum(t.numel() * t.element_size() for t in (
         list(again.graph) + [again.store._vectors, again.store._vec_sq,
-                             again.store._valid] + list(again._nbr_cache))
+                             again.store._valid]
+        + list(again.tables.built["nbr"]))
                    ) / 2**30
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -2985,7 +2996,8 @@ def main(argv=None) -> int:
     insert_s = time.perf_counter() - t0
     insert_steps = port_graph.beam_search.steps
     n_batches = N_INSERT // idx.build_batch
-    check(idx._nbr_cache is not None, "the insert ran without the int8 layout")
+    check("nbr" in idx.tables.built,
+          "the insert ran without the int8 layout")
     log(f"# insert on {smi}: {N_INSERT} rows into {n} in {n_batches} batches "
         f"of {idx.build_batch}: {insert_s:.2f} s = {N_INSERT / insert_s:.0f} "
         f"vec/s, {insert_s / n_batches * 1e3:.1f} ms per batch "

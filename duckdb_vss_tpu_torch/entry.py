@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from duckdb_vss_tpu_torch.models.graph import search_graph
+from duckdb_vss_tpu_torch.models.graph import Tables, search_graph
 from duckdb_vss_tpu_torch.models.hnsw import HNSWIndex
 from duckdb_vss_tpu_torch.parallel.sharded import (ShardedFlatIndex,
                                                    ShardedHNSWIndex,
@@ -38,9 +38,8 @@ def search_step(state, vectors, vec_sq, valid, q, trav, uv, uvsq, unode):
     upper-level table, bf16 traversal gathers, exact f32 rerank.
     Returns (scores [B, 10], slot ids [B, 10], n_dist)."""
     return search_graph(state, vectors, vec_sq, valid, q, k=10, ef=64,
-                        metric=MetricKind.L2SQ, traversal_vectors=trav,
-                        descent="mxu", upper_vecs=uv, upper_vec_sq=uvsq,
-                        upper_nodes=unode)
+                        metric=MetricKind.L2SQ,
+                        tables=Tables(upper=(uv, uvsq, unode), trav=trav))
 
 
 def entry(device: str | torch.device = "cuda"):
@@ -55,9 +54,9 @@ def entry(device: str | torch.device = "cuda"):
     idx.add(vecs, np.arange(n))
     queries = idx.store.prepare_queries(
         rng.normal(size=(8, d)).astype(np.float32))
-    uv, uvsq, unode = idx._upper_vectors()
+    uv, uvsq, unode = idx.tables.upper()
     example_args = (idx.graph, idx.store._vectors, idx.store._vec_sq,
-                    idx.store._valid, queries, idx._traversal_vectors(),
+                    idx.store._valid, queries, idx.tables.traversal(),
                     uv, uvsq, unode)
     return search_step, example_args
 

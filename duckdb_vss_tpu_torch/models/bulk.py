@@ -39,6 +39,11 @@ from duckdb_vss_tpu_torch.ops.topk import flat_topk, smallest_k
 from duckdb_vss_tpu_torch.utils.config import HNSWConfig, MetricKind
 from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
 
+# an add of at least this many rows into an empty graph bulk-builds
+# (HNSWIndex.bulk_threshold's default; the sharded index's, summed over
+# its shards); smaller adds insert incrementally
+BULK_THRESHOLD = 4096
+
 KNN_K = 48  # forward kNN candidates per node
 REV_R = 16  # reverse-kNN candidates kept per node
 RAND_S = 8  # pseudo-random small-world candidates per node

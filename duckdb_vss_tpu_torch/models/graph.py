@@ -18,13 +18,19 @@ beam runs either through the fused kernel K1 (ops/fused_beam.py, ef <=
 the step-by-step beam, whose per-step scoring reads the int8 tiles, or
 kernel K2 (ops/fused_gather.py), or plain gathers; _finish_search drops
 tombstones, reranks exactly in f32 and optionally expands one hop.
+``search_graph`` takes that path from the tables it is given
+(``Tables``); ``SearchTables`` builds and keeps them for one graph and
+its store, for HNSWIndex and for each shard of ShardedHNSWIndex.
 
 ``beam_search`` ends early the way the JAX package's while-loop does,
 but looks at the ``done`` flag only every ``sync_every`` steps (one host
 read each): a step taken after ``done`` selects nothing and changes
-nothing, so the beam and the distance count are the same. Its
-``loop="scan"`` and ``"unroll"`` forms (XLA tactics in the JAX package)
-run the fixed trip count with no host read, to the same results.
+nothing, so the beam and the distance count are the same.
+``sync_every=0`` runs the fixed trip count with no host read, to the
+same results.
+
+Both indexes draw node levels with ``sample_levels`` and compact
+through ``compaction_plan``.
 
 The augmented traversal table (make_aug_table, off by default) folds a
 row's metric terms into the row itself, so the step-by-step beam scores
@@ -33,8 +39,11 @@ a candidate with one row gather and no norm gather.
 
 from __future__ import annotations
 
+import math
+import weakref
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from duckdb_vss_tpu_torch.ops.distance import ieee_sqrt
@@ -57,8 +66,6 @@ UPPER_DIV = 4
 # expansions run the step-by-step beam
 FUSED_MAX_EF = 128
 FUSED_MAX_EXPAND = 8
-
-LOOPS = ("while", "scan", "unroll")
 
 _EPS = 1e-30
 
@@ -119,6 +126,83 @@ def grow_graph(state: GraphState, new_cap: int) -> GraphState:
         upper_node=pad(state.upper_node, new_cap_u),
         levels=pad(state.levels, new_cap),
     )
+
+
+def sample_levels(rng: np.random.Generator, n: int, m: int) -> np.ndarray:
+    """Exponential level sampling -ln(U)/ln(M), the JAX package's
+    sampler on the same numpy generator, so both draw the same levels
+    from the same seed."""
+    u = rng.random(n)
+    inv_log_m = 1.0 / math.log(max(m, 2))
+    lv = np.floor(-np.log(np.maximum(u, 1e-12)) * inv_log_m)
+    return np.minimum(lv, L_MAX).astype(np.int32)
+
+
+class CompactPlan(NamedTuple):
+    """Where compaction moves one graph's nodes (host arrays)."""
+
+    order: np.ndarray  # [n_live] old slot of each new slot
+    remap: np.ndarray  # [cap + 1] int32 new slot of each old one; -1 for
+    # a dead slot and at [cap], where an id of -1 is sent
+    old_uslot: np.ndarray  # [n_up] old upper slot of each new upper slot
+    upper_slot: np.ndarray  # [cap] int32, the new graph's
+    upper_node: np.ndarray  # [cap_u] int32
+    levels: np.ndarray  # [cap] int32
+    entry_node: int
+    max_level: int
+    upper_count: int
+
+
+def compaction_plan(valid: np.ndarray, levels: np.ndarray,
+                    upper_slot: np.ndarray, cap_u: int) -> CompactPlan:
+    """usearch compact()'s slot permutation of one graph: live nodes
+    move to the front ordered by level descending, then by old slot (so
+    the entry, the highest level, lands in slot 0), and the upper slots
+    follow the new order."""
+    cap = len(valid)
+    live = np.nonzero(valid)[0]
+    n_live = len(live)
+    order = live[np.lexsort((live, -levels[live]))]
+    remap = np.full((cap + 1,), -1, np.int32)
+    remap[order] = np.arange(n_live)
+    lv = levels[order]
+    up = np.nonzero(lv >= 1)[0]
+    new_uslot = np.full((cap,), -1, np.int32)
+    new_uslot[up] = np.arange(len(up))
+    upper_node = np.full((cap_u,), -1, np.int32)
+    upper_node[:len(up)] = up
+    new_levels = np.full((cap,), -1, np.int32)
+    new_levels[:n_live] = lv
+    return CompactPlan(order, remap, upper_slot[order[up]], new_uslot,
+                       upper_node, new_levels, 0 if n_live else -1,
+                       int(lv.max()) if n_live else -1, len(up))
+
+
+def compact_graph(state: GraphState, plan: CompactPlan) -> GraphState:
+    """The graph moved by ``plan``: each live node's lists in its new
+    slot with every id remapped (edges into tombstones become -1), -1
+    past the live rows."""
+    dev, cap = state.neighbors0.device, state.capacity
+    remap = torch.from_numpy(plan.remap).to(dev)
+
+    def moved(tbl, rows):
+        out = torch.full_like(tbl, -1)
+        old = tbl[torch.from_numpy(rows).to(dev).long()]
+        out[:len(rows)] = remap[torch.where(old >= 0, old, cap).long()]
+        return out
+
+    def on_dev(a):
+        return torch.from_numpy(a).to(dev)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    return GraphState(
+        neighbors0=moved(state.neighbors0, plan.order),
+        upper_neighbors=moved(state.upper_neighbors, plan.old_uslot),
+        upper_slot=on_dev(plan.upper_slot), upper_node=on_dev(plan.upper_node),
+        levels=on_dev(plan.levels), entry_node=scalar(plan.entry_node),
+        max_level=scalar(plan.max_level), upper_count=scalar(plan.upper_count))
 
 
 # ---------------------------------------------------------------------------
@@ -408,7 +492,6 @@ def beam_search(
     max_steps: int | None = None,
     active: torch.Tensor | None = None,  # [B] bool; inactive queries idle
     use_pallas: bool = False,  # score through kernel K2 (f32 table only)
-    loop: str = "while",  # "while" (early exit) | "scan" | "unroll"
     aug: bool = False,  # vectors/queries/q_sq are augmented (make_aug_table)
     nbr_vecs: torch.Tensor | None = None,  # [cap, M0, D] i8 neighborhood
     nbr_scale: torch.Tensor | None = None,  # [cap, M0] f32 dequant scales
@@ -425,22 +508,17 @@ def beam_search(
     ``vectors`` (f32 or bf16; with ``aug``, an augmented table, its
     queries and their bias).
 
-    loop="while" ends at ``max_steps`` or when every beam entry is
+    The beam ends at ``max_steps`` or when every beam entry is
     expanded or empty. That flag is read on the host every
     ``sync_every`` steps; steps taken past it change nothing (see the
-    module docstring). "scan" and "unroll" run all ``max_steps`` steps
-    and never read it. ``beam_search.steps`` counts the steps taken by
+    module docstring). ``beam_search.steps`` counts the steps taken by
     all calls."""
-    if loop not in LOOPS:
-        raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
     b, p = entry_nodes.shape
     dev = queries.device
     base = level == 0
     tiles = nbr_vecs is not None and base
     if max_steps is None:
         max_steps = 3 * ef // expand + 8
-    if loop != "while":
-        sync_every = 0
     if active is None:
         active = torch.ones((b,), dtype=torch.bool, device=dev)
     if use_pallas and not tiles and not aug \
@@ -627,6 +705,129 @@ def seed_beam(
 
 
 # ---------------------------------------------------------------------------
+# the tables a search reads
+# ---------------------------------------------------------------------------
+
+
+class Tables(NamedTuple):
+    """The derived tables one search reads, already built; search_graph
+    takes its path from which of them are given."""
+
+    upper: tuple | None = None  # upper_table's (rows, sq, nodes)
+    tiles: tuple | None = None  # make_neighborhood_tables' 3 tables
+    meta: torch.Tensor | None = None  # pack_meta rows of the tiles
+    trav: torch.Tensor | None = None  # bf16 traversal copy of the store
+    aug: torch.Tensor | None = None  # make_aug_table
+
+
+class SearchTables:
+    """Owner of the tables derived from one graph and its store that a
+    search reads: the upper-level table (``upper``), the int8
+    neighborhood layout and its meta rows (``nbr``), the bf16 traversal
+    copy (``trav``) and the augmented table (``aug``). Each is built at
+    its first use, on the store's device, and kept in ``built`` until
+    ``drop`` names it; the index decides what each mutation drops.
+
+    ``source(index)`` returns the current (GraphState, store rows, their
+    squared norms); the index is held weakly, so that no reference
+    cycle keeps a dropped index's device memory alive until the next
+    garbage collection. The layout's gate:
+    capacity x M0 x d_pad bytes of int8 tiles, times ``share`` (the
+    layouts that share the device's memory), within the budget;
+    ``auto_on_cpu`` whether layout="auto" takes it on a CPU device."""
+
+    def __init__(self, index, source, metric: MetricKind, share: int = 1,
+                 auto_on_cpu: bool = True):
+        self._index = weakref.ref(index)
+        self._source = source
+        self.metric = metric
+        self.share = int(share)
+        self.auto_on_cpu = bool(auto_on_cpu)
+        self.built: dict = {}
+
+    def source(self):
+        """(GraphState, vectors, vec_sq) as they are now."""
+        return self._source(self._index())
+
+    def drop(self, *names: str) -> None:
+        """Forget the named tables, every table when none is named."""
+        for name in names or tuple(self.built):
+            self.built.pop(name, None)
+
+    def fits(self, budget_bytes: int) -> bool:
+        graph, vectors, _ = self.source()
+        cap, d_pad = vectors.shape
+        return (cap * graph.neighbors0.shape[1] * d_pad * self.share
+                <= budget_bytes)
+
+    def use_layout(self, layout: str, budget_bytes: int) -> bool:
+        """"neighborhood" forces the layout, "flat" refuses it, "auto"
+        takes it where it fits the budget."""
+        if layout != "auto":
+            return layout == "neighborhood"
+        on_card = self.source()[1].device.type == "cuda"
+        return (on_card or self.auto_on_cpu) and self.fits(budget_bytes)
+
+    def upper(self):
+        """upper_table's (rows, sq, nodes)."""
+        if "upper" not in self.built:
+            g, v, sq = self.source()
+            self.built["upper"] = upper_table(g.upper_node, g.upper_count,
+                                              v, sq)
+        return self.built["upper"]
+
+    def neighborhood(self, layout: str, budget_bytes: int):
+        """(nbr_vecs, nbr_scale, nbr_sq, nbr_meta), None while the
+        layout is off. The incremental insert refreshes its rows in
+        place (update_neighborhood_rows)."""
+        if not self.use_layout(layout, budget_bytes):
+            return None
+        if "nbr" not in self.built:
+            g, v, sq = self.source()
+            tiles = make_neighborhood_tables(v, sq, g.neighbors0)
+            self.built["nbr"] = (*tiles, pack_meta(g.neighbors0, *tiles[1:]))
+        return self.built["nbr"]
+
+    def traversal(self, dtype: str = "bf16"):
+        """The bf16 traversal copy: the store itself when it is bf16,
+        None for dtype "f32" (the f32 store)."""
+        vectors = self.source()[1]
+        if vectors.dtype == torch.bfloat16:
+            return vectors
+        if dtype == "f32":
+            return None
+        if "trav" not in self.built:
+            self.built["trav"] = vectors.to(torch.bfloat16)
+        return self.built["trav"]
+
+    def aug(self):
+        if "aug" not in self.built:
+            _, v, sq = self.source()
+            self.built["aug"] = make_aug_table(v, sq, self.metric)
+        return self.built["aug"]
+
+    def for_search(self, layout: str, budget_bytes: int,
+                   descent: str = "mxu", traversal: str = "bf16",
+                   use_aug: bool = False, fused: bool = True) -> Tables:
+        """The tables a search asks for, built in this order: the upper
+        table for the mxu descent; the layout where its gate passes,
+        with the meta rows when ``fused`` (kernel K1); the traversal
+        copy for the beam descent and for gathers without the augmented
+        table; the augmented table, with ``use_aug``, a bf16 traversal
+        and no layout."""
+        upper = self.upper() if descent == "mxu" else None
+        nbr = self.neighborhood(layout, budget_bytes)
+        use_aug = use_aug and traversal != "f32" and nbr is None
+        want_trav = descent == "beam" or (nbr is None and not use_aug)
+        return Tables(
+            upper=upper,
+            tiles=None if nbr is None else nbr[:3],
+            meta=nbr[3] if nbr is not None and fused else None,
+            trav=self.traversal(traversal) if want_trav else None,
+            aug=self.aug() if use_aug else None)
+
+
+# ---------------------------------------------------------------------------
 # full search (descent + base beam + tombstone filter + exact rerank)
 # ---------------------------------------------------------------------------
 
@@ -640,68 +841,46 @@ def search_graph(
     k: int,
     ef: int,
     metric: MetricKind,
+    tables: Tables = Tables(),
     expand: int = 2,
     max_steps: int | None = None,
     use_pallas: bool = False,
     descent_ef: int = 16,
     n_seeds: int = 4,
     descent_steps: int | None = None,
-    traversal_vectors: torch.Tensor | None = None,
-    loop: str = "while",  # the step-by-step beam's loop form
-    descent: str = "beam",  # "beam" | "mxu"
-    upper_vecs: torch.Tensor | None = None,  # required for descent="mxu"
-    upper_vec_sq: torch.Tensor | None = None,
-    upper_nodes: torch.Tensor | None = None,  # slot -> node map matching
-    # upper_vecs' row count; defaults to the full state.upper_node
-    aug_table: torch.Tensor | None = None,  # augmented traversal table
-    nbr_vecs: torch.Tensor | None = None,  # neighborhood layout (make_
-    nbr_scale: torch.Tensor | None = None,  # neighborhood_tables: i8 tiles,
-    nbr_sq: torch.Tensor | None = None,  # dequant scales, squared norms)
-    nbr_meta: torch.Tensor | None = None,  # fused_beam.pack_meta rows
-    pallas_beam: bool = False,  # the fused beam kernel K1
     hop_rerank: int = 0,  # expand the top-`hop_rerank` results one hop
     # at the finish and merge exactly (see _finish_search)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """End-to-end ANN search. Returns (scores [B, k] ascending exact
     index-metric values, ids [B, k] slot ids with -1 fill, n_dist []).
 
-    traversal_vectors, if given, is a reduced-precision (bf16) copy of
-    ``vectors`` used for descent + beam scoring only; the final rerank
-    always reads the store, so emitted distances are exact f32 sums of
-    the stored rows.
-
-    aug_table, if given, supersedes traversal_vectors for the base beam
-    when there is no neighborhood layout: an augmented bf16 table
-    (make_aug_table), one gather per candidate instead of two.
-
-    descent="mxu" routes through one exact product over all upper-level
-    nodes (mxu_descent) instead of the level-1 beam walk; upper_vecs /
-    upper_vec_sq must then hold the upper-slot vector table.
-
-    With ``pallas_beam`` and the neighborhood layout the base beam runs
-    in kernel K1 while ef <= 128 and expand <= 8; wider searches, and
-    indexes without the layout, run ``beam_search``."""
+    The path follows ``tables`` (Tables), and is chosen here alone:
+    - the descent: mxu_descent over ``tables.upper`` (one exact product
+      over all upper-level nodes), else the level-1 beam walk
+      (beam_descent) over the traversal table;
+    - the base beam: kernel K1 over the meta rows and the int8 tiles
+      while ef <= 128 and expand <= 8; else ``beam_search``, scoring
+      through the tiles, else the augmented table (one gather per
+      candidate instead of two), else the traversal table (``trav``, a
+      bf16 copy of ``vectors``, or ``vectors`` itself), through kernel
+      K2 with ``use_pallas``.
+    The final rerank always reads the store, so emitted distances are
+    exact f32 sums of the stored rows."""
     with annotate("search.descent"):
         queries = queries.float()
         q_sq = (queries * queries).sum(-1)
-        trav = vectors if traversal_vectors is None else traversal_vectors
-        if descent == "mxu":
-            seeds, n_dist0 = mxu_descent(
-                upper_vecs, upper_vec_sq,
-                state.upper_node if upper_nodes is None else upper_nodes,
-                state.entry_node, queries, metric, n_seeds)
-        elif descent == "beam":
+        trav = vectors if tables.trav is None else tables.trav
+        if tables.upper is not None:
+            seeds, n_dist0 = mxu_descent(*tables.upper, state.entry_node,
+                                         queries, metric, n_seeds)
+        else:
             seeds, n_dist0 = beam_descent(
                 state, trav, vec_sq, queries, q_sq, metric,
                 descent_ef=descent_ef, n_seeds=n_seeds,
                 descent_steps=descent_steps)
-        else:
-            raise ValueError(
-                f"descent must be 'mxu' or 'beam', got {descent!r}")
     ef_eff = max(ef, k)
-    finish = dict(hop=hop_rerank, neighbors0=state.neighbors0,
-                  nbr_vecs=nbr_vecs, nbr_scale=nbr_scale, nbr_sq=nbr_sq)
-    if (pallas_beam and nbr_vecs is not None and nbr_meta is not None
+    nbr_vecs, nbr_scale, nbr_sq = tables.tiles or (None, None, None)
+    if (tables.meta is not None and nbr_vecs is not None
             and ef_eff <= FUSED_MAX_EF and expand <= FUSED_MAX_EXPAND):
         with annotate("search.seed"):
             seed_s, seed_i = seed_beam(vectors, vec_sq, seeds, queries, q_sq,
@@ -713,29 +892,29 @@ def search_graph(
         m0 = state.neighbors0.shape[1]
         with annotate("search.beam"):
             scores, ids, n_dist1, n_exp = fused_beam_search(
-                queries, q_sq, seed_s, seed_i, nbr_meta, nbr_vecs,
+                queries, q_sq, seed_s, seed_i, tables.meta, nbr_vecs,
                 ef=ef_eff, expand=expand, m0=m0, d=queries.shape[1],
                 max_steps=steps, metric=metric)
         count("k1.distances", n_dist1)
         count("k1.expansions", n_exp)
     else:
         with annotate("search.beam"):
-            aug = aug_table is not None and nbr_vecs is None
+            aug = tables.aug is not None and nbr_vecs is None
             if aug:
                 beam_q, beam_bias = make_aug_queries(queries, q_sq, metric,
-                                                     aug_table.shape[1])
-                beam_tab = aug_table
+                                                     tables.aug.shape[1])
+                beam_tab = tables.aug
             else:
                 beam_tab, beam_q, beam_bias = trav, queries, q_sq
             scores, ids, n_dist1 = beam_search(
                 state, beam_tab, vec_sq, beam_q, beam_bias, seeds, ef_eff,
                 metric, level=0, expand=expand, max_steps=max_steps,
-                use_pallas=use_pallas, loop=loop, aug=aug, nbr_vecs=nbr_vecs,
+                use_pallas=use_pallas, aug=aug, nbr_vecs=nbr_vecs,
                 nbr_scale=nbr_scale, nbr_sq=nbr_sq)
     with annotate("search.finish"):
         out = _finish_search(vectors, vec_sq, valid_mask, queries, q_sq,
                              metric, k, scores, ids, n_dist0 + n_dist1,
-                             **finish)
+                             hop_rerank, state.neighbors0, tables.tiles)
     count("search.queries", queries.shape[0])
     count("search.distances", out[2])
     return out
@@ -755,14 +934,13 @@ def _sort_score_then_high_id(scores, ids, k):
 
 
 def _finish_search(vectors, vec_sq, valid_mask, queries, q_sq, metric, k,
-                   scores, ids, n_dist, hop=0, neighbors0=None,
-                   nbr_vecs=None, nbr_scale=None, nbr_sq=None):
+                   scores, ids, n_dist, hop=0, neighbors0=None, tiles=None):
     """Tombstone filter, then exact f32 rerank. Deterministic tie order:
     equal exact distances resolve to the higher slot id.
 
     hop > 0 adds a one-hop rerank expansion: score the NEIGHBORS of the
-    top-hop results (through the int8 tiles when the layout is given,
-    else by gathers from the store), keep the best 16 that are new, live
+    top-hop results (through the int8 ``tiles`` when the layout is
+    given, else by gathers from the store), keep the best 16 that are new, live
     and distinct, rescore those exactly and merge them into the top-k."""
     live = valid_mask[ids.clamp_min(0).long()] & (ids >= 0)
     exact = gather_scores(vectors, vec_sq, ids, queries, q_sq, metric)
@@ -776,12 +954,12 @@ def _finish_search(vectors, vec_sq, valid_mask, queries, q_sq, metric, k,
     safe_src = src.clamp_min(0).long()
     nbrs = torch.where((src >= 0)[:, :, None], neighbors0[safe_src], -1)
     cand = nbrs.reshape(b, -1)  # [B, h*M0]
-    if nbr_vecs is not None:
+    if tiles is not None:
         # the tiles of nbr_vecs[src] ARE the vectors of neighbors0[src],
         # column-aligned with `cand`
         q_i8, q_scale = quantize_queries_i8(queries)
-        s_c = _int8_tile_scores(nbr_vecs, nbr_scale, nbr_sq, safe_src, q_i8,
-                                q_scale, q_sq, metric)
+        s_c = _int8_tile_scores(*tiles, safe_src, q_i8, q_scale, q_sq,
+                                metric)
     else:
         s_c = gather_scores(vectors, vec_sq, cand, queries, q_sq, metric)
     # mask BEFORE selecting: the top results are each other's neighbors,

@@ -1,10 +1,12 @@
 """HNSWIndex — the user-facing HNSW index (port of
 duckdb_vss_tpu/models/hnsw.py).
 
-Owns the vector store (FlatIndex), the graph (GraphState), the config,
-the level sampler, tombstone bookkeeping and the distance counters.
+Owns the vector store (FlatIndex), the graph (GraphState), the search's
+derived tables (graph.SearchTables, ``tables``), the config, the level
+generator, tombstone bookkeeping and the distance counters.
 
-``add`` into an empty index with at least 4096 rows is the bulk build
+``add`` into an empty index with at least ``bulk_threshold`` rows
+(4096) is the bulk build
 (``CREATE INDEX``); any other batch is inserted incrementally, in
 batches of ``build_batch`` rows (models/build.insert_batch). ``search``
 (``ORDER BY ... LIMIT k``) runs the fused beam kernel K1 over the int8
@@ -28,25 +30,21 @@ constructor takes keyword arguments with the same defaults.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from duckdb_vss_tpu_torch.models.build import insert_batch
-from duckdb_vss_tpu_torch.models.bulk import bulk_build
+from duckdb_vss_tpu_torch.models.bulk import BULK_THRESHOLD, bulk_build
 from duckdb_vss_tpu_torch.models.flat import (TRANSFER_DTYPES, FlatIndex,
                                               PinnedBuffer)
 from duckdb_vss_tpu_torch.models.graph import (L_MAX, GraphState,
-                                               gather_scores, greedy_descent,
-                                               grow_graph, make_aug_table,
-                                               make_graph,
-                                               make_neighborhood_tables,
-                                               search_graph,
-                                               update_neighborhood_rows,
-                                               upper_table)
+                                               SearchTables, compact_graph,
+                                               compaction_plan, gather_scores,
+                                               greedy_descent,
+                                               grow_graph, make_graph,
+                                               sample_levels, search_graph,
+                                               update_neighborhood_rows)
 from duckdb_vss_tpu_torch.ops.distance import pair_scores
-from duckdb_vss_tpu_torch.ops.fused_beam import pack_meta
 from duckdb_vss_tpu_torch.utils.config import HNSWConfig, MetricKind
 from duckdb_vss_tpu_torch.utils.padding import round_up
 from duckdb_vss_tpu_torch.utils.tracing import annotate, count, span
@@ -156,12 +154,10 @@ class HNSWIndex:
         self.use_aug = bool(use_aug)
         self.query_transfer_dtype = query_transfer_dtype
         # bulk loads into an empty graph at/above this size take bulk_build
-        self.bulk_threshold = 4096
+        self.bulk_threshold = BULK_THRESHOLD
         self.nbr_budget_bytes = NBR_BUDGET_BYTES
-        self._trav_cache = None
-        self._aug_cache = None
-        self._upper_cache = None
-        self._nbr_cache = None
+        self.tables = SearchTables(self, lambda ix: (
+            ix.graph, ix.store._vectors, ix.store._vec_sq), self.config.metric)
         # search's page-locked staging on a card: the queries on their
         # way up and the results on their way down
         self._pinned_in = PinnedBuffer()
@@ -212,75 +208,12 @@ class HNSWIndex:
     def __len__(self) -> int:
         return self.store.size
 
-    def _sample_levels(self, n: int) -> np.ndarray:
-        """Exponential level sampling -ln(U)/ln(M), the JAX package's
-        sampler on the same numpy generator, so both draw the same
-        levels from the same seed."""
-        u = self._level_rng.random(n)
-        inv_log_m = 1.0 / math.log(max(self.config.m, 2))
-        lv = np.floor(-np.log(np.maximum(u, 1e-12)) * inv_log_m)
-        return np.minimum(lv, L_MAX).astype(np.int32)
-
     def reserve(self, n: int) -> None:
         self.store.reserve(n)
         if self.store.capacity > self.graph.capacity:
             self.graph = grow_graph(self.graph, self.store.capacity)
-            self._upper_cache = None
-            self._nbr_cache = None  # the tables' shape follows the capacity
-
-    def _traversal_vectors(self):
-        """The bf16 traversal copy of the store for the step-by-step
-        beam and the beam descent, made at the first search after an
-        add; the store itself when it is bf16; None for
-        traversal_dtype="f32" (the f32 store)."""
-        if self.store.scalar_kind == "bf16":
-            return self.store._vectors
-        if self.traversal_dtype == "f32":
-            return None
-        if self._trav_cache is None:
-            self._trav_cache = self.store._vectors.to(torch.bfloat16)
-        return self._trav_cache
-
-    def _aug_table(self):
-        """The augmented bf16 traversal table (graph.make_aug_table),
-        made at the first search after an add; None unless ``use_aug``
-        with a bf16 traversal."""
-        if self.traversal_dtype == "f32" or not self.use_aug:
-            return None
-        if self._aug_cache is None:
-            self._aug_cache = make_aug_table(
-                self.store._vectors, self.store._vec_sq, self.metric)
-        return self._aug_cache
-
-    def _upper_vectors(self):
-        """graph.upper_table of this index, cached until a mutation."""
-        if self._upper_cache is None:
-            self._upper_cache = upper_table(
-                self.graph.upper_node, self.graph.upper_count,
-                self.store._vectors, self.store._vec_sq)
-        return self._upper_cache
-
-    def _neighborhood_tables(self):
-        """(nbr_vecs [cap, M0, d_pad] int8, nbr_scale [cap, M0], nbr_sq
-        [cap, M0], nbr_meta [cap, W] int32): the int8 neighborhood
-        layout, built at the first use after a bulk build or a capacity
-        growth and kept current by the incremental insert. Four Nones
-        when the layout is off: layout="flat", or "auto" with a table
-        over the memory budget."""
-        if self.layout == "flat":
-            return None, None, None, None
-        m0 = self.graph.neighbors0.shape[1]
-        table_bytes = self.store.capacity * m0 * self.store.d_pad
-        if self.layout != "neighborhood" \
-                and table_bytes > self.nbr_budget_bytes:
-            return None, None, None, None
-        if self._nbr_cache is None:
-            vecs_i8, scale, sq = make_neighborhood_tables(
-                self.store._vectors, self.store._vec_sq,
-                self.graph.neighbors0)
-            meta = pack_meta(self.graph.neighbors0, scale, sq)
-            self._nbr_cache = (vecs_i8, scale, sq, meta)
-        return self._nbr_cache
+            # the tables' shape follows the capacity
+            self.tables.drop("upper", "nbr")
 
     # ------------------------------------------------------------------
     @span("index.add")
@@ -299,14 +232,12 @@ class HNSWIndex:
         graph_empty = int(self.graph.entry_node) < 0
         self.reserve(self.store.size + n)
         slots = self.store.add(vectors, keys)
-        self._trav_cache = None
-        self._aug_cache = None
-        self._upper_cache = None
         # the neighborhood layout stays valid across adds: storing new
         # vectors touches no existing row's neighbor list, and the
         # incremental path below refreshes the rows each batch changes.
         # Only a capacity growth (reserve) or the bulk path drops it.
-        levels = self._sample_levels(n)
+        self.tables.drop("upper", "trav", "aug")
+        levels = sample_levels(self._level_rng, n, self.config.m)
 
         if graph_empty and n >= self.bulk_threshold:
             if on_progress is not None:
@@ -318,7 +249,7 @@ class HNSWIndex:
                 host_vectors=vectors, stats_out=stats)
             self.build_distance_count += stats["n_distances"]
             self.build_stats = stats
-            self._nbr_cache = None  # whole graph replaced
+            self.tables.drop("nbr")  # whole graph replaced
             if on_progress is not None:
                 on_progress(1.0)
             return slots
@@ -326,7 +257,8 @@ class HNSWIndex:
         bb, cfg = self.build_batch, self.config
         # when the int8 layout is active each batch's base-layer beam
         # reads it, and the batch then refreshes only its changed rows
-        nv, nsc, nsq, nmeta = self._neighborhood_tables()
+        nv, nsc, nsq, nmeta = (self.tables.neighborhood(
+            self.layout, self.nbr_budget_bytes) or (None,) * 4)
         msb = self.build_max_steps
         if msb is None:
             msb = _default_build_steps(cfg.ef_construction, self.build_expand)
@@ -377,7 +309,7 @@ class HNSWIndex:
         nb0, un = _isolate(self.graph.neighbors0, self.graph.upper_neighbors,
                            self.store._valid)
         self.graph = self.graph._replace(neighbors0=nb0, upper_neighbors=un)
-        self._nbr_cache = None
+        self.tables.drop("nbr")
         self.is_dirty = True
 
     # ------------------------------------------------------------------
@@ -392,13 +324,11 @@ class HNSWIndex:
         n_seeds: int = 8,
         chunk: int = 8192,
         max_steps: int | None = None,
-        loop: str = "while",
         hop_rerank: int | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
         """ANN top-k. ef defaults to config.ef_search and is rounded up
-        to a multiple of 16; hop_rerank defaults to the index's setting;
-        loop is the step-by-step beam's form (graph.beam_search). Queries
-        go to the device as ``query_transfer_dtype``, in chunks of
+        to a multiple of 16; hop_rerank defaults to the index's setting.
+        Queries go to the device as ``query_transfer_dtype``, in chunks of
         ``chunk`` rows; on a card each chunk is staged in page-locked
         memory and copied up without waiting, so the host prepares and
         issues the next chunk while the card runs this one. The slots
@@ -422,8 +352,7 @@ class HNSWIndex:
                                                self.query_transfer_dtype,
                                                stage)
             outs.append(self.search_device(q, k, ef, expand, max_steps,
-                                           n_seeds, hop_rerank, descent_ef,
-                                           loop))
+                                           n_seeds, hop_rerank, descent_ef))
         self._add_search_distances(sum(o[2] for o in outs))
         with annotate("index.download"):
             keys = self.store.keys_of(torch.cat([o[1] for o in outs]))
@@ -454,104 +383,64 @@ class HNSWIndex:
     def search_device(self, queries_padded: torch.Tensor, k: int,
                       ef: int | None = None, expand: int = 4,
                       max_steps: int | None = None, n_seeds: int = 8,
-                      hop_rerank: int | None = None, descent_ef: int = 48,
-                      loop: str = "while"):
-        """Device-resident search: returns (scores, slots, n_dist) tensors."""
+                      hop_rerank: int | None = None, descent_ef: int = 48):
+        """Device-resident search: returns (scores, slots, n_dist) tensors.
+        The index's settings pick the tables it asks for
+        (SearchTables.for_search); search_graph takes its path from
+        them."""
         self._ensure_loaded()
         hop = min(self.hop_rerank if hop_rerank is None else int(hop_rerank),
                   k)
         ef_eff = round_up(max(int(ef or self.config.ef_search), k), 16)
-        uv, uvsq, unode = (self._upper_vectors() if self.descent == "mxu"
-                           else (None, None, None))
-        nv, nscale, nsq, nmeta = self._neighborhood_tables()
-        # with the neighborhood layout the base beam reads the tiles, with
-        # the augmented table that table; the traversal copy is then only
-        # the beam descent's
-        want_trav = self.descent == "beam" or (nv is None
-                                               and not self.use_aug)
+        tables = self.tables.for_search(
+            self.layout, self.nbr_budget_bytes, descent=self.descent,
+            traversal=self.traversal_dtype, use_aug=self.use_aug,
+            fused=self.use_pallas_beam)
         return search_graph(
             self.graph, self.store._vectors, self.store._vec_sq,
             self.store._valid, queries_padded, int(k), ef_eff, self.metric,
-            expand=expand, max_steps=max_steps, use_pallas=self.use_pallas,
-            descent_ef=descent_ef, n_seeds=n_seeds, descent_steps=16,
-            traversal_vectors=(self._traversal_vectors() if want_trav
-                               else None),
-            loop=loop, descent=self.descent, upper_vecs=uv,
-            upper_vec_sq=uvsq, upper_nodes=unode,
-            aug_table=None if nv is not None else self._aug_table(),
-            nbr_vecs=nv, nbr_scale=nscale, nbr_sq=nsq, nbr_meta=nmeta,
-            pallas_beam=self.use_pallas_beam and nv is not None,
-            hop_rerank=hop)
+            tables, expand=expand, max_steps=max_steps,
+            use_pallas=self.use_pallas, descent_ef=descent_ef,
+            n_seeds=n_seeds, descent_steps=16, hop_rerank=hop)
 
     # ------------------------------------------------------------------
     def compact(self) -> None:
         """Slot permutation compaction (usearch compact(); PRAGMA
         hnsw_compact_index). Capacity is kept. Live nodes move to the
-        front ordered by level descending, then by old slot; every edge
-        is remapped through the permutation, and edges into tombstoned
-        nodes are dropped (isolate()). Every cache is dropped."""
+        front ordered by level descending, then by old slot
+        (graph.compaction_plan); every edge is remapped through the
+        permutation, and edges into tombstoned nodes are dropped
+        (isolate()). Dead rows are written as +0.0. Every table is
+        dropped."""
         self._ensure_loaded()
-        dev = self.device
-        valid = self.store._valid.cpu().numpy()
-        levels = self.graph.levels.cpu().numpy()
-        live = np.nonzero(valid)[0]
-        n_live = len(live)
-        old_of_new = live[np.lexsort((live, -levels[live]))]
-        cap = self.store.capacity
-        new_of_old = np.full((cap + 1,), -1, np.int32)  # [cap]: id -1
-        new_of_old[old_of_new] = np.arange(n_live)
-        remap = torch.from_numpy(new_of_old).to(dev)
+        dev, cap, g = self.device, self.store.capacity, self.graph
+        plan = compaction_plan(
+            self.store._valid.cpu().numpy(), g.levels.cpu().numpy(),
+            g.upper_slot.cpu().numpy(), g.upper_neighbors.shape[0])
+        self.graph = compact_graph(g, plan)
+        n_live = len(plan.order)
 
-        def remap_ids(tbl):
-            return remap[torch.where(tbl >= 0, tbl, cap).long()]
-
-        def padded(rows, n_rows, fill=-1):
-            out = torch.full((n_rows,) + tuple(rows.shape[1:]), fill,
+        def padded(rows, fill):
+            out = torch.full((cap,) + tuple(rows.shape[1:]), fill,
                              dtype=rows.dtype, device=dev)
-            out[:rows.shape[0]] = rows
+            out[:n_live] = rows
             return out
 
-        def scalar(v):
-            return torch.tensor(v, dtype=torch.int32, device=dev)
-
-        perm = torch.from_numpy(old_of_new).to(dev)
-        g = self.graph
-        lv_new = levels[old_of_new]
-        has_upper = lv_new >= 1
-        n_upper = int(has_upper.sum())
-        cap_u = g.upper_neighbors.shape[0]
-        upper_slot = np.full((cap,), -1, np.int32)
-        upper_slot[np.nonzero(has_upper)[0]] = np.arange(n_upper)
-        old_uslot = g.upper_slot.cpu().numpy()[old_of_new[has_upper]]
-        upper_node = np.full((cap_u,), -1, np.int32)
-        upper_node[:n_upper] = np.nonzero(has_upper)[0]
-        new_levels = np.full((cap,), -1, np.int32)
-        new_levels[:n_live] = lv_new
-        self.graph = GraphState(
-            neighbors0=padded(remap_ids(g.neighbors0[perm]), cap),
-            upper_neighbors=padded(remap_ids(g.upper_neighbors[
-                torch.from_numpy(old_uslot).to(dev).long()]), cap_u),
-            upper_slot=torch.from_numpy(upper_slot).to(dev),
-            upper_node=torch.from_numpy(upper_node).to(dev),
-            levels=torch.from_numpy(new_levels).to(dev),
-            entry_node=scalar(0 if n_live else -1),  # highest level first
-            max_level=scalar(int(lv_new.max()) if n_live else -1),
-            upper_count=scalar(n_upper))
         # the store moves by the same permutation (FlatIndex.compact packs
         # by slot order and shrinks, which the graph cannot follow)
         st = self.store
-        st._vectors = padded(st._vectors[perm], cap, 0)
-        st._vec_sq = padded(st._vec_sq[perm], cap, 0)
+        perm = torch.from_numpy(plan.order).to(dev)
+        st._vectors = padded(st._vectors[perm], 0)
+        st._vec_sq = padded(st._vec_sq[perm], 0)
         st._valid = padded(torch.ones((n_live,), dtype=torch.bool,
-                                      device=dev), cap, False)
-        keys_np = st._keys[old_of_new]
+                                      device=dev), False)
+        keys_np = st._keys[plan.order]
         st._keys = np.full((cap,), -1, np.int64)
         st._keys[:n_live] = keys_np
         st._key_to_slot = {int(k): i for i, k in enumerate(keys_np.tolist())}
         st._free_slots = []
         st._next_slot = n_live
-        self._trav_cache = self._aug_cache = None
-        self._nbr_cache = self._upper_cache = None
+        self.tables.drop()
         self.is_dirty = True
 
     # ------------------------------------------------------------------

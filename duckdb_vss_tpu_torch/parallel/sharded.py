@@ -43,11 +43,13 @@ scores as a one-process search of the same graphs.
 Of the JAX package's ``DVT_*`` settings, only the layout is a
 constructor keyword: K1 always runs on the int8 layout, there is no
 one-hop rerank, and the memory budget is the ``nbr_budget_bytes``
-attribute, as in HNSWIndex.
+attribute, as in HNSWIndex. Each shard of each replica row keeps its
+search tables in its own graph.SearchTables, the single index's owner.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import math
@@ -58,13 +60,13 @@ import torch
 import torch.distributed as dist
 
 from duckdb_vss_tpu_torch.models.build import insert_batch
-from duckdb_vss_tpu_torch.models.bulk import bulk_build
+from duckdb_vss_tpu_torch.models.bulk import BULK_THRESHOLD, bulk_build
 from duckdb_vss_tpu_torch.models.flat import SCALAR_DTYPES, row_sq_norms
 from duckdb_vss_tpu_torch.models.graph import (L_MAX, UPPER_DIV, GraphState,
-                                               make_neighborhood_tables,
-                                               search_graph, upper_table)
+                                               SearchTables, compact_graph,
+                                               compaction_plan, sample_levels,
+                                               search_graph)
 from duckdb_vss_tpu_torch.models.hnsw import NBR_BUDGET_BYTES, _isolate
-from duckdb_vss_tpu_torch.ops.fused_beam import pack_meta
 from duckdb_vss_tpu_torch.ops.topk import flat_topk, smallest_k
 from duckdb_vss_tpu_torch.utils import persist as PS
 from duckdb_vss_tpu_torch.utils.config import HNSWConfig, MetricKind
@@ -76,7 +78,6 @@ from duckdb_vss_tpu_torch.utils.padding import pad_2d_np, pad_dim, round_up
 from duckdb_vss_tpu_torch.utils.tracing import annotate, span
 
 SCATTER_ROWS = 4096  # rows per host-to-device step of an add
-BULK_MIN_ROWS = 4096  # an add into empty graphs of this many rows bulk-builds
 STORE_FIELDS = ("vectors", "vec_sq", "valid")
 # the sharded file's sections, in the JAX package's order, and the
 # sharded_to_arrays name each holds (the file has no norms: load sums them)
@@ -462,17 +463,12 @@ def _grid_search(index, queries: np.ndarray, chunk: int, k: int, run):
 class _Group:
     """The local shards that one replica row keeps on one device: in
     ``t``, each field's tensor with those shards stacked on a leading
-    axis in shard order ([S_d, ...]), and the search tables built from
-    them (upper and int8 tables per shard, the bf16 traversal copy)."""
+    axis in shard order ([S_d, ...])."""
 
     def __init__(self, row: int, device: torch.device,
                  shards: tuple[int, ...]):
         self.row, self.device, self.shards = row, device, shards
         self.t: dict[str, torch.Tensor] = {}
-        self.clear_tables()
-
-    def clear_tables(self) -> None:
-        self.upper = self.nbr = self.trav = None
 
 
 class _ShardStore:
@@ -543,13 +539,12 @@ class _ShardStore:
     def _sync_replicas(self, names=None) -> None:
         """Copy the fields ``names`` (default: every field) of row 0 into
         the other replica rows, shard by shard onto each replica's
-        device, and drop their tables."""
+        device."""
         for g in self.groups:
             if g.row:
                 g.t.update({name: torch.stack(
                     [self._view(name, j).to(g.device) for j in g.shards])
                     for name in (names or list(g.t))})
-                g.clear_tables()
 
 
 # ---------------------------------------------------------------------------
@@ -697,6 +692,17 @@ class ShardedHNSWIndex(_ShardStore):
         self._next_slot = np.zeros((s,), np.int64)
         self.layout = layout
         self.nbr_budget_bytes = NBR_BUDGET_BYTES
+        # one table owner per shard of each replica row; the layout's
+        # budget counts every shard and replica a device holds, and
+        # "auto" takes the layout on CUDA only (the JAX package's gate)
+        on = collections.Counter()
+        for g in self.groups:
+            on[g.device] += len(g.shards)
+        self.tables = {
+            (r, j): SearchTables(
+                self, lambda ix, j=j, r=r: ix._source(j, r), config.metric,
+                share=max(on.values()), auto_on_cpu=False)
+            for r in range(len(mesh.grid)) for j in range(len(mesh.shards))}
         self.build_stats: list[dict] = []  # the last bulk build's, per shard
         self.is_dirty = False
 
@@ -726,6 +732,12 @@ class ShardedHNSWIndex(_ShardStore):
         """The GraphState of local shard j: views."""
         return GraphState(*(self._view(f, j, row) for f in GRAPH_FIELDS))
 
+    def _source(self, j: int, row: int = 0):
+        """(GraphState, vectors, vec_sq) of local shard j in replica
+        ``row``: what its search tables derive from."""
+        return (self._state(j, row), self._view("vectors", j, row),
+                self._view("vec_sq", j, row))
+
     def _put_state(self, j: int, st: GraphState) -> None:
         """Write a shard's new GraphState into its views in row 0."""
         for f, src in zip(GRAPH_FIELDS, st):
@@ -744,8 +756,8 @@ class ShardedHNSWIndex(_ShardStore):
         """After a mutation of row 0: copy the fields ``names`` (default:
         every field) to the replicas, drop every table."""
         self._sync_replicas(names)
-        for g in self.groups:
-            g.clear_tables()
+        for t in self.tables.values():
+            t.drop()
         self.is_dirty = True
 
     def __len__(self) -> int:
@@ -771,18 +783,11 @@ class ShardedHNSWIndex(_ShardStore):
         self._invalidate()
 
     # -- build ------------------------------------------------------------
-    def _sample_levels(self, n: int) -> np.ndarray:
-        """-ln(U)/ln(M) on the shared generator, as the JAX package."""
-        u = self._rng.random(n)
-        inv = 1.0 / math.log(max(self.config.m, 2))
-        return np.minimum(np.floor(-np.log(np.maximum(u, 1e-12)) * inv),
-                          L_MAX).astype(np.int32)
-
     def add(self, vectors: np.ndarray, keys: np.ndarray) -> None:
         """Place keys onto shards (virtual-shard, load-aware), store the
         rows, then bulk-build empty graphs (every graph empty and at
-        least 4096 rows in all) or insert in ``build_batch`` steps, each
-        shard on its own device."""
+        least BULK_THRESHOLD rows in all) or insert in ``build_batch``
+        steps, each shard on its own device."""
         vectors = np.asarray(vectors, np.float32)
         keys = np.asarray(keys, np.int64).reshape(-1)
         shards = self.placement.place(keys)
@@ -818,11 +823,12 @@ class ShardedHNSWIndex(_ShardStore):
 
         cfg = self.config
         graphs_empty = int(self._gather("max_level").max()) < 0
-        if graphs_empty and len(keys) >= BULK_MIN_ROWS:
+        if graphs_empty and len(keys) >= BULK_THRESHOLD:
             # every rank draws every shard's levels, in shard order, so the
             # shared generator advances alike everywhere; each rank then
             # builds its own shards from its own store slices
-            lv_lists = [self._sample_levels(len(sl)) for sl in slot_lists]
+            lv_lists = [sample_levels(self._rng, len(sl), cfg.m)
+                        for sl in slot_lists]
             self.build_stats = []
             for j, i in self._local():
                 stats: dict = {}
@@ -844,7 +850,8 @@ class ShardedHNSWIndex(_ShardStore):
             for i in range(s):
                 chunk = slot_lists[i][step * bb:(step + 1) * bb]
                 batch_slots[i, :len(chunk)] = chunk
-                batch_levels[i, :len(chunk)] = self._sample_levels(len(chunk))
+                batch_levels[i, :len(chunk)] = sample_levels(
+                    self._rng, len(chunk), cfg.m)
             for j, i in self._local():
                 if (batch_slots[i] < 0).all():
                     continue  # a batch of pad rows changes nothing
@@ -901,148 +908,50 @@ class ShardedHNSWIndex(_ShardStore):
 
     def compact(self) -> None:
         """Per-shard slot-permutation compaction (usearch compact(),
-        index.hpp:3002-3096): the permutations are computed on the host
-        from valid, levels and upper_slot, identically on every rank,
-        then applied to each shard's tensors on its device."""
-        s, cap = self.n_shards, self.cap
+        index.hpp:3002-3096): each shard's plan (graph.compaction_plan)
+        is computed on the host from valid, levels and upper_slot,
+        identically on every rank, then applied to the shard's tensors
+        on its device. Dead rows are multiplied by zero, as in the JAX
+        package (signed zeros)."""
+        cap, cap_u = self.cap, self._cap_u()
         valid = self._gather("valid").numpy()
         levels = self._gather("levels").numpy()
         uslot = self._gather("upper_slot").numpy()
-        cap_u = self._cap_u()
-
-        perm = np.zeros((s, cap), np.int32)
-        remap = np.full((s, cap + 1), -1, np.int32)
-        old_uslot = np.zeros((s, cap_u), np.int32)
-        row_live = np.zeros((s, cap), bool)
-        urow_live = np.zeros((s, cap_u), bool)
-        upper_slot_new = np.full((s, cap), -1, np.int32)
-        upper_node_new = np.full((s, cap_u), -1, np.int32)
-        levels_new = np.full((s, cap), -1, np.int32)
-        entry_new = np.full((s,), -1, np.int32)
-        maxlv_new = np.full((s,), -1, np.int32)
-        ucount_new = np.zeros((s,), np.int32)
-        keys_new = np.full((s, cap), -1, np.int64)
-
-        for i in range(s):
-            live = np.nonzero(valid[i])[0]
-            n_live = len(live)
-            order = np.lexsort((live, -levels[i][live]))
-            old_of_new = live[order]
-            perm[i, :n_live] = old_of_new
-            remap[i, old_of_new] = np.arange(n_live)
-            row_live[i, :n_live] = True
-            lv_new = levels[i][old_of_new]
-            levels_new[i, :n_live] = lv_new
-            has_upper = lv_new >= 1
-            n_up = int(has_upper.sum())
-            upper_slot_new[i, np.nonzero(has_upper)[0]] = np.arange(n_up)
-            old_uslot[i, :n_up] = uslot[i][old_of_new[has_upper]]
-            urow_live[i, :n_up] = True
-            upper_node_new[i, :n_up] = np.nonzero(has_upper)[0]
-            ucount_new[i] = n_up
-            if n_live:
-                maxlv_new[i] = int(lv_new.max())
-                entry_new[i] = 0  # highest level sorts first
-            keys_new[i, :n_live] = self._keys[i][old_of_new]
+        plans = [compaction_plan(valid[i], levels[i], uslot[i], cap_u)
+                 for i in range(self.n_shards)]
+        keys_new = np.full((self.n_shards, cap), -1, np.int64)
+        for i, plan in enumerate(plans):
+            n_live = len(plan.order)
+            keys_new[i, :n_live] = self._keys[i][plan.order]
             self._key_to_slot[i] = {
                 int(k): j for j, k in enumerate(keys_new[i, :n_live])}
             self._free_slots[i] = []
             self._next_slot[i] = n_live
 
         for j, i in self._local():
-            v = {f: self._view(f, j) for f in STORE_FIELDS + GRAPH_FIELDS}
-            dev = v["vectors"].device
-
-            def on_dev(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-            p = on_dev(perm[i]).long()
-            rm = on_dev(remap[i])
-            live = on_dev(row_live[i])
-            ulive = on_dev(urow_live[i])
-
-            def remap_ids(tbl):
-                return rm[torch.where(tbl >= 0, tbl, cap).long()]
-
-            nb0 = torch.where(live[:, None], remap_ids(v["neighbors0"][p]), -1)
-            un = torch.where(ulive[:, None], remap_ids(
-                v["upper_neighbors"][on_dev(old_uslot[i]).long()]), -1)
-            # dead rows multiply to (signed) zeros, as in the JAX package
-            v["vectors"].copy_(v["vectors"][p] * live[:, None])
-            v["vec_sq"].copy_(v["vec_sq"][p] * live)
-            v["valid"].copy_(live)
-            v["neighbors0"].copy_(nb0)
-            v["upper_neighbors"].copy_(un)
-            v["upper_slot"].copy_(on_dev(upper_slot_new[i]))
-            v["upper_node"].copy_(on_dev(upper_node_new[i]))
-            v["levels"].copy_(on_dev(levels_new[i]))
-            v["entry_node"].fill_(int(entry_new[i]))
-            v["max_level"].fill_(int(maxlv_new[i]))
-            v["upper_count"].fill_(int(ucount_new[i]))
+            plan = plans[i]
+            self._put_state(j, compact_graph(self._state(j), plan))
+            vectors, vec_sq, valid = self._store(j)
+            n_live = len(plan.order)
+            rows = torch.zeros((cap,), dtype=torch.int64, device=valid.device)
+            rows[:n_live] = torch.from_numpy(plan.order).to(valid.device)
+            live = torch.arange(cap, device=valid.device) < n_live
+            # dead rows: row 0 multiplied to (signed) zeros, as in the JAX
+            # package
+            vectors.copy_(vectors[rows] * live[:, None])
+            vec_sq.copy_(vec_sq[rows] * live)
+            valid.copy_(live)
         self._keys = keys_new
         self._invalidate()
 
     # -- search -------------------------------------------------------------
-    def _nbr_budget_ok(self) -> bool:
-        """The int8 tables of the shards each device holds, replicas
-        included, are summed against the budget, and every device must
-        pass (the JAX package's accounting for shards that share one
-        memory)."""
-        per_shard = self.cap * self.config.m0 * self.d_pad  # int8
-        on: dict = {}
-        for g in self.groups:
-            on[g.device] = on.get(g.device, 0) + len(g.shards)
-        return all(per_shard * n <= self.nbr_budget_bytes
-                   for n in on.values())
-
-    def _use_nbr(self) -> bool:
-        """The int8 neighborhood layout: forced, or by default on CUDA
-        devices within the budget (the JAX package's non-CPU gate)."""
-        return self.layout == "neighborhood" or (
-            self.layout == "auto"
-            and all(g.device.type == "cuda" for g in self.groups)
-            and self._nbr_budget_ok())
-
-    def _tables(self) -> bool:
-        """Build each group's search tables once per mutation, on its
-        device: the upper tables, and the int8 neighborhood tables or
-        the bf16 traversal copy. Returns whether the int8 layout is in
-        use."""
-        use_nbr = self._use_nbr()
-        for g in self.groups:
-            t, n = g.t, len(g.shards)
-            if g.upper is None:
-                g.upper = [upper_table(t["upper_node"][p],
-                                       t["upper_count"][p], t["vectors"][p],
-                                       t["vec_sq"][p]) for p in range(n)]
-            if use_nbr and g.nbr is None:
-                g.nbr = []
-                for p in range(n):
-                    nb0 = t["neighbors0"][p]
-                    nv, sc, sq = make_neighborhood_tables(
-                        t["vectors"][p], t["vec_sq"][p], nb0)
-                    g.nbr.append((nv, sc, sq, pack_meta(nb0, sc, sq)))
-            if not use_nbr and g.trav is None:
-                g.trav = (t["vectors"] if self._dtype == torch.bfloat16
-                          else t["vectors"].to(torch.bfloat16))
-        return use_nbr
-
-    def _shard_args(self, row: int, j: int, use_nbr: bool):
-        """search_graph's inputs for local shard j of replica ``row``, on
-        its device: (state, vectors, vec_sq, valid, keywords for the mxu
-        descent and the int8 layout with K1, or the traversal copy).
-        ``_tables`` must have run."""
-        g, p = self._where[(row, j)]
-        uv, uvsq, unode = g.upper[p]
-        kw = dict(descent="mxu", upper_vecs=uv, upper_vec_sq=uvsq,
-                  upper_nodes=unode)
-        if use_nbr:
-            nv, nsc, nsq, nmeta = g.nbr[p]
-            kw.update(nbr_vecs=nv, nbr_scale=nsc, nbr_sq=nsq,
-                      nbr_meta=nmeta, pallas_beam=True)
-        else:
-            kw.update(traversal_vectors=g.trav[p])
-        return (self._state(j, row), *self._store(j, row), kw)
+    def search_tables(self) -> dict:
+        """(row, local shard) -> the graph.Tables that shard searches
+        with, built on its device: the upper table for the mxu descent,
+        and the int8 layout with K1 where its gate passes, else the
+        bf16 traversal copy."""
+        return {key: t.for_search(self.layout, self.nbr_budget_bytes)
+                for key, t in self.tables.items()}
 
     @span("sharded.search")
     def search(self, queries: np.ndarray, k: int, ef: int | None = None,
@@ -1065,15 +974,15 @@ class ShardedHNSWIndex(_ShardStore):
             queries = queries[None]
         ef_eff = ef_local_policy(ef or self.config.ef_search, int(k),
                                  self.n_shards, ef_local)
-        use_nbr = self._tables()
+        # every table is built before the first search is issued
+        tables = self.search_tables()
         start, cap, metric = self.mesh.shards.start, self.cap, \
             self.config.metric
 
         def run(row, j, q):
-            st, vectors, vec_sq, valid, kw = self._shard_args(row, j, use_nbr)
-            scores, slots, _ = search_graph(st, vectors, vec_sq, valid, q,
-                                            int(k), ef_eff, metric,
-                                            expand=expand, **kw)
+            scores, slots, _ = search_graph(
+                self._state(j, row), *self._store(j, row), q, int(k), ef_eff,
+                metric, tables[(row, j)], expand=expand)
             return scores, torch.where(slots >= 0,
                                        (start + j) * cap + slots.long(), -1)
 

@@ -1,7 +1,6 @@
 """Port parity: the augmented traversal table (graph.aug_width,
 make_aug_table, make_aug_queries, the aug branch of beam_search and
-search_graph, HNSWIndex(use_aug=True)) and the beam's loop forms
-(loop="while" | "scan" | "unroll") against the JAX package.
+search_graph, HNSWIndex(use_aug=True)) against the JAX package.
 
 Tolerances:
 - tables and query rows bit for bit. One exception, stated: cosine
@@ -15,8 +14,7 @@ Tolerances:
 - the beam over one carried-across graph and the same tables: identical
   ids and distance counts, scores within 1e-5 (bf16 products summed in
   f32 in another order), as tests/test_torch_beam.py holds the other
-  branches;
-- the "scan" and "unroll" forms equal the "while" form exactly.
+  branches.
 """
 
 import jax.numpy as jnp
@@ -116,7 +114,7 @@ def test_aug_beam_matches_jax(pair, expand):
     and table."""
     jidx, tidx, _v, _q, qp, qj = pair
     jtab = jidx._aug_table()
-    ttab = tidx._aug_table()
+    ttab = tidx.tables.aug()
     np.testing.assert_array_equal(host_array(ttab),
                                   np.asarray(jtab).view(np.uint16))
     seeds = _seeds(np.random.default_rng(43), NQ, 5, N)
@@ -152,39 +150,9 @@ def test_search_with_aug_table_matches_jax(pair):
                       for a, b in zip(tk.tolist(), want.tolist())])
     assert recall >= 0.9, recall
     tidx.use_aug = False
-    tidx._aug_cache = None
+    tidx.tables.drop("aug")
     try:
-        assert tidx._aug_table() is None
         tidx.search(q[:4], 10)
-        assert tidx._aug_cache is None
+        assert "aug" not in tidx.tables.built
     finally:
         tidx.use_aug = True
-
-
-@pytest.mark.parametrize("loop", ["scan", "unroll"])
-def test_loop_forms_equal_while(pair, loop):
-    """The fixed-trip forms return the while form's beam (the JAX
-    package's too) and take every step; search(loop=...) the same keys."""
-    jidx, tidx, _v, q, qp, qj = pair
-    st = tidx.store
-    seeds = _seeds(np.random.default_rng(44), NQ, 4, N)
-    args = (tidx.graph, st._vectors, st._vec_sq, qp, (qp * qp).sum(-1),
-            torch.from_numpy(seeds), 32, MetricKind.L2SQ)
-    ws, wi, wn = tgraph.beam_search(*args, expand=4, loop="while")
-    tgraph.beam_search.steps = 0
-    fs, fi, fn = tgraph.beam_search(*args, expand=4, loop=loop)
-    assert tgraph.beam_search.steps == 3 * 32 // 4 + 8
-    np.testing.assert_array_equal(fi.numpy(), wi.numpy())
-    np.testing.assert_array_equal(fs.numpy(), ws.numpy())
-    assert int(fn) == int(wn)
-    js, ji, jn = jgraph.beam_search(
-        jidx.graph, jidx.store._vectors, jidx.store._vec_sq, qj,
-        jnp.sum(qj * qj, -1), jnp.asarray(seeds), 32, JMetric.L2SQ,
-        expand=4, loop=loop)
-    np.testing.assert_array_equal(fi.numpy(), np.asarray(ji))
-    assert int(fn) == int(jn)
-    _, k_while = tidx.search(q, 10, ef=32)
-    _, k_loop = tidx.search(q, 10, ef=32, loop=loop)
-    np.testing.assert_array_equal(k_loop, k_while)
-    with pytest.raises(ValueError, match="loop"):
-        tgraph.beam_search(*args, loop="for")

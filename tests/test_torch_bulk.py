@@ -18,6 +18,7 @@ from duckdb_vss_tpu.utils.config import HNSWConfig as JConfig
 from duckdb_vss_tpu.utils.config import MetricKind as JMetric
 from duckdb_vss_tpu_torch.models import build as tbuild
 from duckdb_vss_tpu_torch.models import bulk as tbulk
+from duckdb_vss_tpu_torch.models.graph import sample_levels
 from duckdb_vss_tpu_torch.models.hnsw import HNSWIndex
 from duckdb_vss_tpu_torch.utils.config import HNSWConfig, MetricKind
 from duckdb_vss_tpu_torch.utils.padding import (pad_2d_np, pad_dim,
@@ -34,7 +35,8 @@ def _store(seed, n, d, n_centers=64):
     cap = round_up_capacity(n)
     store = pad_2d_np(v, cap, pad_dim(d))
     # the sampler both HNSWIndex classes use, on one generator
-    levels = HNSWIndex(d, device="cpu")._sample_levels(n)
+    levels = sample_levels(HNSWIndex(d, device="cpu")._level_rng, n,
+                           HNSWConfig().m)
     return v, store, (store * store).sum(1).astype(np.float32), levels
 
 

@@ -13,11 +13,14 @@ the calls that leave the fused path.
 (f) (gpu) the kernel check of chip_smoke.py on the card.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from duckdb_vss_tpu.models import graph as jgraph
 from duckdb_vss_tpu.models.hnsw import HNSWIndex as JHNSW
+from duckdb_vss_tpu.ops.pallas_beam import pack_meta as j_pack_meta
 from duckdb_vss_tpu.utils.config import HNSWConfig as JConfig
 from duckdb_vss_tpu_torch.models import graph as tgraph
 from duckdb_vss_tpu_torch.models.flat import FlatIndex
@@ -92,8 +95,11 @@ def test_jax_graph_carried_across(jax_built):
     np.testing.assert_allclose(ts[both], js[both], rtol=1e-5, atol=1e-6)
 
     # the port's own layout of that graph is the JAX package's, bit for bit
-    jv, jsc, jsq, jmeta = jidx._nbr_cache
-    tv, tsc, tsq, tmeta = tidx._neighborhood_tables()
+    jv, jsc, jsq = jgraph.make_neighborhood_tables(
+        jidx.store._vectors, jidx.store._vec_sq, jidx.graph.neighbors0)
+    jmeta = jax.jit(j_pack_meta)(jidx.graph.neighbors0, jsc, jsq)
+    tv, tsc, tsq, tmeta = tidx.tables.neighborhood(tidx.layout,
+                                                   tidx.nbr_budget_bytes)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tmeta.numpy(), np.asarray(jmeta))
 
@@ -191,7 +197,8 @@ def test_out_of_slice_calls_raise(jax_built):
         # bf16 traversal copy, which is the JAX package's path on the CPU
         tidx.nbr_budget_bytes = 1 << 20
         jidx.layout = "auto"
-        assert tidx._neighborhood_tables() == (None,) * 4
+        assert tidx.tables.neighborhood(tidx.layout,
+                                        tidx.nbr_budget_bytes) is None
         _, jk = jidx.search(q, 10)
         _, tk = tidx.search(q, 10)
         assert fb.beam_search_plain.calls == fused

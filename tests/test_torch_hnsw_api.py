@@ -137,7 +137,7 @@ def test_isolate_and_compact_bitwise(built, isolate_first):
         assert valid[un[un >= 0]].all(), "an upper edge into a tombstone"
         # live entries first in every base list
         assert not ((nb0[:, 1:] >= 0) & (nb0[:, :-1] < 0)).any()
-        assert tidx.is_dirty and tidx._nbr_cache is None
+        assert tidx.is_dirty and "nbr" not in tidx.tables.built
         got = assert_same_search(jidx, tidx, q, v)
         assert not set(got.ravel().tolist()) & dead_keys
     jidx.compact()
@@ -265,7 +265,7 @@ def test_bf16_store_recall(built):
     tidx = HNSWIndex(D, HNSWConfig(), capacity=N, device="cpu",
                      scalar_kind="bf16")
     tidx.add(v, keys)
-    assert tidx._traversal_vectors() is tidx.store._vectors
+    assert tidx.tables.traversal() is tidx.store._vectors
     np.testing.assert_array_equal(
         host_array(tidx.store._vectors),
         np.asarray(jidx.store._vectors).view(np.uint16))

@@ -211,7 +211,7 @@ def test_two_inserts_on_one_seed_give_one_graph(layout):
         t.layout = layout
         t._level_rng.bit_generator.state = jidx._level_rng.bit_generator.state
         if layout == "neighborhood":
-            assert t._neighborhood_tables()[0] is not None
+            assert t.tables.neighborhood(t.layout, t.nbr_budget_bytes)
     for idx in [jidx] + ports:
         idx.add(v[n0:], keys[n0:])
     a, b = ports
@@ -222,8 +222,8 @@ def test_two_inserts_on_one_seed_give_one_graph(layout):
     np.testing.assert_array_equal(a.store._keys, b.store._keys)
     assert a.build_distance_count == b.build_distance_count > 0
     if layout == "neighborhood":
-        assert all(torch.equal(x, y)
-                   for x, y in zip(a._nbr_cache, b._nbr_cache))
+        assert all(torch.equal(x, y) for x, y in zip(
+            a.tables.built["nbr"], b.tables.built["nbr"]))
     assert_graphs_agree(a.graph, jidx.graph, n0 + n1)
 
 
@@ -241,7 +241,7 @@ def test_add_keeps_the_int8_layout_valid():
         idx.add(v[:n0], keys[:n0])  # bulk path
         if backlinks == "batched":  # opt-in: HNSWIndex never selects it
             idx.search(v[:4], 1)  # builds the layout
-            cached = idx._nbr_cache
+            cached = idx.tables.built["nbr"]
             slots = idx.store.add(v[n0:n0 + BB], keys[n0:n0 + BB])
             st = torch.from_numpy(np.asarray(slots, np.int32))
             idx.graph, _ = tbuild.insert_batch(
@@ -257,11 +257,11 @@ def test_add_keeps_the_int8_layout_valid():
         else:
             idx.add(v[n0:], keys[n0:])  # incremental, layout active
             n_new = n1
-        assert idx._nbr_cache is not None
+        assert "nbr" in idx.tables.built
         fv, fsc, fsq = make_neighborhood_tables(
             idx.store._vectors, idx.store._vec_sq, idx.graph.neighbors0)
         fm = pack_meta(idx.graph.neighbors0, fsc, fsq)
-        for got, want in zip(idx._nbr_cache, (fv, fsc, fsq, fm)):
+        for got, want in zip(idx.tables.built["nbr"], (fv, fsc, fsq, fm)):
             assert torch.equal(got, want)
         _, got = idx.search(v[n0:n0 + n_new], 1, ef=32)
         self_rec = float((got[:, 0] == keys[n0:n0 + n_new]).mean())

@@ -36,6 +36,7 @@ import torch
 from duckdb_vss_tpu.parallel import sharded as jsh
 from duckdb_vss_tpu.utils.config import HNSWConfig as JConfig
 from duckdb_vss_tpu.utils.config import MetricKind as JMetric
+from duckdb_vss_tpu_torch.models.graph import sample_levels
 from duckdb_vss_tpu_torch.ops import fused_beam as fb
 from duckdb_vss_tpu_torch.parallel import sharded as tsh
 from duckdb_vss_tpu_torch.utils.config import HNSWConfig, MetricKind
@@ -371,8 +372,8 @@ def test_sample_levels_equal_jax(jmesh, tmesh):
     j = jsh.ShardedHNSWIndex(16, JConfig(), jmesh, seed=99)
     t = tsh.ShardedHNSWIndex(16, HNSWConfig(), tmesh, seed=99)
     for n in (0, 1, 7, 4096):
-        np.testing.assert_array_equal(t._sample_levels(n),
-                                      j._sample_levels(n))
+        np.testing.assert_array_equal(
+            sample_levels(t._rng, n, t.config.m), j._sample_levels(n))
 
 
 def _pathological_keys(n, s):
@@ -539,9 +540,10 @@ def test_sharded_neighborhood_layout(recall_case, tmesh):
     # the auto layout's budget sums the tables of every shard on the device
     per_shard = idx.cap * idx.config.m0 * idx.d_pad
     idx.nbr_budget_bytes = per_shard * idx.n_shards
-    assert idx._nbr_budget_ok()
+    assert all(t.fits(idx.nbr_budget_bytes) for t in idx.tables.values())
     idx.nbr_budget_bytes -= 1
-    assert not idx._nbr_budget_ok()
+    assert not any(t.fits(idx.nbr_budget_bytes)
+                   for t in idx.tables.values())
     idx.layout = "auto"  # on the CPU: the bf16 traversal copy, no K1
     calls = fb.beam_search_plain.calls
     idx.search(v[:8], 5)

@@ -243,16 +243,15 @@ def test_grid_q2_matches_jax(jax_q2):
     assert_answers_match(t.search(q, 5, ef=32), j.search(q, 5, ef=32), v, q)
     # K1's plain version once per shard of each replica row
     assert fb.beam_search_plain.calls - calls == 8
-    for g in t.groups[1:]:
-        for a, b in zip(g.nbr, t.groups[0].nbr):
-            for x, y in zip(a, b):
-                np.testing.assert_array_equal(x.numpy(), y.numpy())
-    tables = [g.nbr for g in t.groups]
+    for (_, shard), tabs in t.tables.items():
+        for x, y in zip(tabs.built["nbr"], t.tables[(0, shard)].built["nbr"]):
+            np.testing.assert_array_equal(x.numpy(), y.numpy())
+    tables = {key: tabs.built["nbr"] for key, tabs in t.tables.items()}
     for idx in (j, t):
         idx.remove(keys[200:260])
     # tombstones reach every replica row, and every row keeps its tables
     assert_replicas_equal(t)
-    assert all(g.nbr is n for g, n in zip(t.groups, tables))
+    assert all(t.tables[key].built["nbr"] is n for key, n in tables.items())
     assert_answers_match(t.search(q, 5, ef=32), j.search(q, 5, ef=32), v, q)
     for idx in (j, t):
         idx.compact()

@@ -35,7 +35,7 @@ def _rows(n, seed=0):
 def index():
     idx = HNSWIndex(D, HNSWConfig(), capacity=8192, device="cpu")
     idx.add(_rows(N), np.arange(N))
-    assert idx._neighborhood_tables()[0] is not None  # K1's path
+    assert idx.tables.use_layout(idx.layout, idx.nbr_budget_bytes)  # K1's
     return idx
 
 
