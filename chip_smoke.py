@@ -30,12 +30,14 @@ FlatIndex scan.
 
 Phases (any failure raises and exits non-zero):
   1. device: nvidia-smi name and power limit, torch's device name;
-  2. build: compile csrc/fused_beam.cu and csrc/gather_scores.cu with
-     nvcc for sm_90a (two processes, started together), print each
-     -Xptxas -v summary;
+  2. build: compile csrc/fused_beam.cu, csrc/gather_scores.cu,
+     csrc/fused_descent.cu and csrc/search_ends.cu with nvcc for sm_90a
+     (one process each, started together), print each -Xptxas -v
+     summary;
   3. main path 1: build + search at full width, with every kernel launch
      count set to 0 just before and read just after; requires recall@10
-     >= 0.95 against the flat scan, K1 launched, its plain version not.
+     >= 0.95 against the flat scan, K1 launched, its plain version not,
+     K4 and K5 once per K1 launch.
      Then the measured CPU baseline (utils/cpu_baseline.py, native/
      cpu_hnsw.cpp compiled for the host), 1,000 queries on every core
      over that index's graph at ef 64: every id in range, recall and
@@ -56,7 +58,13 @@ Phases (any failure raises and exits non-zero):
      int8 per candidate kept; the time for whole tiles (what the kernel
      copies, and what the bound counted before) is printed beside it.
      Then each phase's share of a block's resident clocks
-     (tools/k1_phases.py, printed, not checked);
+     (tools/k1_phases.py, printed, not checked); then K4 and K5 (the
+     seed beam and the finish, csrc/search_ends.cu) against seed_beam
+     and _finish_search on the search path's own inputs at B=8192, 1,808
+     and 1 (scores within descent_bound, ids equal outside rounding
+     ties, the INF_SCORE places alike, K4's count of seeds equal), and
+     their times at B=8192 beside their plain versions' and their byte
+     bounds (the distinct rows they read over HBM's bandwidth);
  4a. kernel check: K3 (the fused descent) against its plain PyTorch
      version on path 1's upper table (65,536 rows, l2sq) at B=8192 and
      B=1: every score within descent_bound (f32 sums in another order),
@@ -392,34 +400,20 @@ def path_beam_inputs(idx, queries_np, ef):
     return (qd, q_sq, seed_s, seed_i, meta, nv)
 
 
-def search_stages(idx, qd, args, kw, k, search_ms, k1_ms):
-    """Device time of each search_graph stage at the chunk's shape."""
-    from duckdb_vss_tpu_torch.models.graph import (_finish_search,
-                                                   mxu_descent, seed_beam)
-    from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search
+def search_stages(idx, qd, k, search_ms, k1_ms, ends):
+    """Device time of each search_graph stage at the chunk's shape: the
+    descent, K4 and K5 (``ends``, from time_ends) and K1."""
+    from duckdb_vss_tpu_torch.models.graph import mxu_descent
     from duckdb_vss_tpu_torch.utils.timing import device_time
 
-    st = idx.store
-    q_sq = (qd * qd).sum(-1)
     uv, uvsq, unode = idx.tables.upper()
-    seeds, _ = mxu_descent(uv, uvsq, unode, idx.graph.entry_node, qd,
-                           idx.metric, 8)
-    s, i, _, _ = fused_beam_search(*args, **kw)
-    ms = {
-        "descent": device_time(lambda: mxu_descent(
-            uv, uvsq, unode, idx.graph.entry_node, qd, idx.metric, 8),
-            iters=5),
-        "seed_beam": device_time(lambda: seed_beam(
-            st._vectors, st._vec_sq, seeds, qd, q_sq, idx.metric, kw["ef"]),
-            iters=5),
-        "finish": device_time(lambda: _finish_search(
-            st._vectors, st._vec_sq, st._valid, qd, q_sq, idx.metric, k, s,
-            i, 0), iters=5),
-    }
-    parts = ", ".join(f"{n} {t * 1e3:.3f}" for n, t in ms.items())
-    log(f"# search stages at B={qd.shape[0]} (device ms): {parts}, K1 "
-        f"{k1_ms:.3f}; whole search_device {search_ms:.3f} (descent table "
-        f"{uv.shape[0]} rows)")
+    descent_ms = device_time(lambda: mxu_descent(
+        uv, uvsq, unode, idx.graph.entry_node, qd, idx.metric, 8),
+        iters=5) * 1e3
+    log(f"# search stages at B={qd.shape[0]} (device ms): descent "
+        f"{descent_ms:.3f}, seed (K4) {ends['seed_ms']:.4f}, K1 "
+        f"{k1_ms:.3f}, finish (K5) {ends['finish_ms']:.4f}; whole "
+        f"search_device {search_ms:.3f} (descent table {uv.shape[0]} rows)")
 
 
 def beam_bound_ms(args, kw, n_expanded, n_dist):
@@ -643,8 +637,28 @@ def compare_descent(name, q, table, table_sq, nodes, metric, k=8):
     diff = np.abs(got_s.astype(np.float64) - want_s[:, :k])
     ratio = float((diff / bound[:, None])[live].max()) if live.any() else 0.0
     check(ratio <= 1.0, f"{name}: a score differs by {ratio:.2f} x the bound")
+    bad = groups_differ(got_i, want_i, want_s, live, bound, k)
+    check(bad == 0, f"{name}: {bad} groups of slots differ beyond ties")
+    log(f"# kernel check {name}: B={q.shape[0]} U={table.shape[0]} "
+        f"D={table.shape[1]} k={k} live places {int(live.sum())} largest "
+        f"score difference {ratio:.3f} x the bound")
+    return ratio
+
+
+def groups_differ(got_i, want_i, want_s, live, bound, k):
+    """Row by row, the reference's finite scores (want_s, one place more
+    than the k compared, so that a group cut at the k-th place shows)
+    split into groups of neighbours closer than twice ``bound[row]``: a
+    group that ends within k must hold the same ids in got_i as in
+    want_i; one cut at k distinct ids new to the row. ``live`` [B, k]
+    marks the finite places. Returns the number of groups that
+    differ."""
+    import numpy as np
+
+    from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
+
     bad = 0
-    for r in range(got_s.shape[0]):
+    for r in range(got_i.shape[0]):
         s, tie = want_s[r].astype(np.float64), 2.0 * bound[r]
         n_live = int(live[r].sum())
         start = 0
@@ -659,11 +673,125 @@ def compare_descent(name, q, table, table_sq, nodes, metric, k=8):
                 bad += (len(set(g.tolist())) != len(g)
                         or bool(set(g.tolist()) & set(got_i[r, :start].tolist())))
             start = end
-    check(bad == 0, f"{name}: {bad} groups of slots differ beyond ties")
-    log(f"# kernel check {name}: B={q.shape[0]} U={table.shape[0]} "
-        f"D={table.shape[1]} k={k} live places {int(live.sum())} largest "
-        f"score difference {ratio:.3f} x the bound")
-    return ratio
+    return bad
+
+
+def compare_ends(name, idx, qd, ef, k, metric):
+    """Kernels K4 and K5 against seed_beam and _finish_search on the
+    search path's own inputs for the queries qd (the descent's 8 seeds,
+    K1's beam from them): scores within descent_bound (the f32 bound of
+    tests/test_torch_topk.py: the sums run in another order than
+    cuBLAS's), ids equal outside rounding ties, the INF_SCORE places
+    and their ids alike, K4's count of seeds equal to the plain one.
+    Returns each kernel's largest score difference over its bound, and
+    the inputs for timing."""
+    import numpy as np
+    import torch
+
+    from duckdb_vss_tpu_torch.models.graph import (_finish_search,
+                                                   mxu_descent, seed_beam)
+    from duckdb_vss_tpu_torch.ops import search_ends as se
+    from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search
+    from duckdb_vss_tpu_torch.utils.padding import INF_SCORE
+
+    st = idx.store
+    q_sq = (qd * qd).sum(-1)
+    seeds, _ = mxu_descent(*idx.tables.upper(), idx.graph.entry_node, qd,
+                           metric, 8)
+    nv, _scale, _sq, meta = idx.tables.neighborhood(idx.layout,
+                                                    idx.nbr_budget_bytes)
+    n = torch.zeros((), dtype=torch.int64, device=qd.device)
+    seed_args = (st._vectors, st._vec_sq, seeds, qd, q_sq, metric, ef)
+    got = se.seed_kernel(*seed_args, n)
+    want = seed_beam(*seed_args)
+    beam = fused_beam_search(qd, q_sq, *got, meta, nv, ef=ef, expand=4,
+                             m0=idx.config.m0, d=qd.shape[1],
+                             max_steps=max(8, ef // 2), metric=metric)[:2]
+    fin_args = (st._vectors, st._vec_sq, st._valid, qd, q_sq, metric)
+    got_f = se.finish_kernel(*fin_args, k, *beam)
+    want_f = _finish_search(*fin_args, k + 1, *beam)
+    torch.cuda.synchronize()
+    check(int(n) == int((seeds >= 0).sum()),
+          f"{name}: K4 counted {int(n)} seeds")
+    bound = descent_bound(qd, st._vec_sq, metric)
+    ratios = []
+    for what, (gs, gi), (ws, wi), kk in (
+            ("K4", got, want, ef), ("K5", got_f, want_f, k)):
+        gs, gi, ws, wi = (t.cpu().numpy() for t in (gs, gi, ws, wi))
+        ws_k, wi_k = ws[:, :kk], wi[:, :kk]
+        live = ws_k < INF_SCORE
+        check(bool(((gs >= INF_SCORE) == ~live).all()
+                   and (gi[~live] == wi_k[~live]).all()),
+              f"{name} {what}: the INF_SCORE places differ")
+        diff = np.abs(gs.astype(np.float64) - ws_k)
+        ratio = float((diff / bound[:, None])[live].max()) if live.any() \
+            else 0.0
+        check(ratio <= 1.0,
+              f"{name} {what}: a score differs by {ratio:.2f} x the bound")
+        ws_ext = ws if ws.shape[1] > kk else np.concatenate(
+            [ws, np.full((ws.shape[0], 1), INF_SCORE, ws.dtype)], 1)
+        bad = groups_differ(gi, wi, ws_ext, live, bound, kk)
+        check(bad == 0, f"{name} {what}: {bad} groups of ids differ beyond "
+              "ties")
+        ratios.append(ratio)
+    log(f"# kernel check {name}: B={qd.shape[0]} ef {ef} k {k}: K4 "
+        f"{ratios[0]:.3f}, K5 {ratios[1]:.3f} x the bound (largest score "
+        "difference)")
+    return ratios, (seed_args, fin_args, beam)
+
+
+def ends_bound_ms(vectors, seeds, scores, ids, valid, k):
+    """Least time of K4's and K5's work on the card: the bytes they must
+    move over HBM's bandwidth, each distinct row once (many queries
+    share seeds, and their beams overlap in the base rows, so the L2
+    cache serves the repeats). K4: each distinct seed >= 0 its row and
+    norm, each query its seeds, row and norm, and its beam of (score,
+    id) written; K5: each beam entry its (score, id), each distinct id
+    >= 0 its slot's flag, each distinct live id its row and norm, each
+    query its row and norm, and k (score, id) written. Also returns the
+    distinct rows each reads."""
+    import torch
+
+    b, p = seeds.shape
+    d = vectors.shape[1]
+    row = d * vectors.element_size()
+    ef = ids.shape[1]
+    q_io = b * (4 * d + 4)
+    seed_rows = int(torch.unique(seeds[seeds >= 0]).numel())
+    k4 = seed_rows * (row + 4) + b * 4 * p + q_io + b * ef * 8
+    has = ids >= 0
+    live = has & (scores < 3.0e38) & valid[ids.clamp_min(0).long()]
+    flags = int(torch.unique(ids[has]).numel())
+    live_rows = int(torch.unique(ids[live]).numel())
+    k5 = b * ef * 8 + flags + live_rows * (row + 4) + q_io + b * k * 8
+    return (k4 / HBM_BYTES_PER_S * 1e3, k5 / HBM_BYTES_PER_S * 1e3,
+            seed_rows, live_rows)
+
+
+def time_ends(inputs, k):
+    """K4's and K5's times at one shape (CUDA events over back-to-back
+    calls), their plain versions', and their byte bounds: a dict."""
+    import torch
+
+    from duckdb_vss_tpu_torch.models.graph import _finish_search, seed_beam
+    from duckdb_vss_tpu_torch.ops import search_ends as se
+    from duckdb_vss_tpu_torch.utils.timing import device_time
+
+    seed_args, fin_args, beam = inputs
+    n = torch.zeros((), dtype=torch.int64, device=beam[0].device)
+    out = {
+        "seed_ms": device_time(lambda: se.seed_kernel(*seed_args, n),
+                               iters=50) * 1e3,
+        "seed_plain_ms": device_time(lambda: seed_beam(*seed_args),
+                                     iters=10) * 1e3,
+        "finish_ms": device_time(lambda: se.finish_kernel(
+            *fin_args, k, *beam), iters=50) * 1e3,
+        "finish_plain_ms": device_time(lambda: _finish_search(
+            *fin_args, k, *beam), iters=10) * 1e3}
+    (out["seed_bound_ms"], out["finish_bound_ms"], out["seed_rows"],
+     out["finish_rows"]) = ends_bound_ms(fin_args[0], seed_args[2], *beam,
+                                         fin_args[2], k)
+    return out
 
 
 def descent_random_inputs(device, b, u, d=128, seed=0, dead=0.05):
@@ -2803,6 +2931,7 @@ def main(argv=None) -> int:
     from duckdb_vss_tpu_torch.ops import fused_beam as fb
     from duckdb_vss_tpu_torch.ops import fused_descent as fd
     from duckdb_vss_tpu_torch.ops import fused_gather as fg
+    from duckdb_vss_tpu_torch.ops import search_ends as se
     from duckdb_vss_tpu_torch.tools import k1_phases
     from duckdb_vss_tpu_torch.utils.timing import device_time
 
@@ -2818,10 +2947,12 @@ def main(argv=None) -> int:
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
-    build_logs = cuda_build.build([fb.KERNEL, fg.KERNEL, fd.KERNEL])
+    build_logs = cuda_build.build([fb.KERNEL, fg.KERNEL, fd.KERNEL,
+                                   se.KERNEL])
     log(f"# nvcc build of {os.path.relpath(fb.SOURCE, here)}, "
-        f"{os.path.relpath(fg.SOURCE, here)} and "
-        f"{os.path.relpath(fd.SOURCE, here)} (in parallel): "
+        f"{os.path.relpath(fg.SOURCE, here)}, "
+        f"{os.path.relpath(fd.SOURCE, here)} and "
+        f"{os.path.relpath(se.SOURCE, here)} (in parallel): "
         f"{time.perf_counter() - t0:.2f} s")
     for name, build_log in build_logs.items():
         for line in build_log.splitlines():
@@ -2843,6 +2974,7 @@ def main(argv=None) -> int:
         fb.fused_beam_search.launches = fb.beam_search_plain.calls = 0
         fg.gather_scores_kernel.launches = fg.gather_scores_plain.calls = 0
         fd.fused_descent.launches = fd.fused_descent_plain.calls = 0
+        se.seed_kernel.launches = se.finish_kernel.launches = 0
         port_graph.beam_search.steps = 0
 
     zero_counts()
@@ -2864,6 +2996,7 @@ def main(argv=None) -> int:
     plain_calls = fb.beam_search_plain.calls
     k3_launches = fd.fused_descent.launches
     k3_plain_calls = fd.fused_descent_plain.calls
+    k45_launches = (se.seed_kernel.launches, se.finish_kernel.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     phases = {p: round(s, 3) for p, s in idx.build_stats["phase_s"].items()}
     log(f"# build: {build_s:.2f} s ({n / build_s:.0f} vec/s) phases {phases}")
@@ -2894,6 +3027,9 @@ def main(argv=None) -> int:
     check(plain_calls == 0, "the main path ran K1's plain version")
     check(k3_launches > 0, "the main path never launched kernel K3")
     check(k3_plain_calls == 0, "the main path ran K3's plain version")
+    check(k45_launches == (k1_launches, k1_launches),
+          f"the main path launched K4 and K5 {k45_launches} times for "
+          f"{k1_launches} K1 launches")
     qd = idx.store.prepare_queries(q[:TIMED_B])
     dev_s = device_time(lambda: idx.search_device(qd, k), iters=5)
     log(f"# search_device ({TIMED_B} queries on the card): {dev_s * 1e3:.2f} "
@@ -2922,7 +3058,27 @@ def main(argv=None) -> int:
     clocks, shares = k1_phases.phase_shares(args, kw)
     log(f"# K1 phases at that shape ({clocks:.0f} clocks resident a block): "
         + ", ".join(f"{name} {share:.1%}" for name, share in shares.items()))
-    search_stages(idx, qd, args, kw, k, dev_s * 1e3, k_ms)
+    # K4 and K5 on the search path's inputs: the chunk, the last chunk
+    # of a 10,000-query call, a statement
+    ends_err = [0.0, 0.0]
+    for b in (TIMED_B, nq % TIMED_B, 1):
+        errs45, ends_in = compare_ends(f"1M-l2sq-B{b}", idx, qd[:b], 64, k,
+                                       MetricKind.L2SQ)
+        ends_err = [max(a, e) for a, e in zip(ends_err, errs45)]
+        if b == TIMED_B:
+            ends = time_ends(ends_in, k)
+        del ends_in
+    log(f"# K4 on {smi} at B={TIMED_B}, 8 seeds, ef 64: "
+        f"{ends['seed_ms']:.4f} ms; plain {ends['seed_plain_ms']:.3f} ms; "
+        f"bound {ends['seed_bound_ms']:.4f} ms (bytes: {ends['seed_rows']} "
+        f"distinct rows), the kernel at {ends['seed_bound_ms'] / ends['seed_ms']:.1%}"
+        " of it")
+    log(f"# K5 on {smi} at B={TIMED_B}, ef 64, k {k}: "
+        f"{ends['finish_ms']:.4f} ms; plain {ends['finish_plain_ms']:.3f} "
+        f"ms; bound {ends['finish_bound_ms']:.4f} ms (bytes: "
+        f"{ends['finish_rows']} distinct live rows), the kernel at "
+        f"{ends['finish_bound_ms'] / ends['finish_ms']:.1%} of it")
+    search_stages(idx, qd, k, dev_s * 1e3, k_ms, ends)
     args = path_beam_inputs(idx, q[:TIMED_B], 128)
     k128_ms, _, _, _, tail = time_beam(args, kw128)
     log(f"# K1 on {smi} at B={TIMED_B}, ef 128, expand 8, 64 steps: "
@@ -3250,6 +3406,30 @@ def main(argv=None) -> int:
         "bound_ms": k3[TIMED_B]["bound_ms"],
         "bound_by": k3[TIMED_B]["bound_by"],
         "b1": k3[1],
+        "library_ms": None,
+    }, {
+        "name": "search_seed",
+        "route": "cuda",
+        "source": "duckdb_vss_tpu_torch/csrc/search_ends.cu",
+        "replaces": None,
+        "launches_path1": k45_launches[0],
+        "max_err_over_bound": ends_err[0],
+        "ms": ends["seed_ms"],
+        "plain_ms": ends["seed_plain_ms"],
+        "bound_ms": ends["seed_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "search_finish",
+        "route": "cuda",
+        "source": "duckdb_vss_tpu_torch/csrc/search_ends.cu",
+        "replaces": None,
+        "launches_path1": k45_launches[1],
+        "max_err_over_bound": ends_err[1],
+        "ms": ends["finish_ms"],
+        "plain_ms": ends["finish_plain_ms"],
+        "bound_ms": ends["finish_bound_ms"],
+        "bound_by": "bytes",
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,7 +17,10 @@ beam runs either through the fused kernel K1 (ops/fused_beam.py, ef <=
 128 and expand <= 8 over the int8 layout) or through ``beam_search``,
 the step-by-step beam, whose per-step scoring reads the int8 tiles, or
 kernel K2 (ops/fused_gather.py), or plain gathers; _finish_search drops
-tombstones, reranks exactly in f32 and optionally expands one hop.
+tombstones and reranks exactly in f32, and _one_hop optionally expands
+one hop. On the card the seed beam and the finish run as kernels K4 and
+K5 (ops/search_ends.py); seed_beam and _finish_search are their plain
+versions, which the CPU runs.
 ``search_graph`` takes that path from the tables it is given
 (``Tables``); ``SearchTables`` builds and keeps them for one graph and
 its store, for HNSWIndex and for each shard of ShardedHNSWIndex.
@@ -50,6 +53,7 @@ from duckdb_vss_tpu_torch.ops.distance import ieee_sqrt
 from duckdb_vss_tpu_torch.ops.fused_beam import fused_beam_search, pack_meta
 from duckdb_vss_tpu_torch.ops.fused_descent import fused_descent
 from duckdb_vss_tpu_torch.ops.fused_gather import gather_scores_kernel
+from duckdb_vss_tpu_torch.ops.search_ends import finish_kernel, seed_kernel
 from duckdb_vss_tpu_torch.ops.topk import smallest_k
 from duckdb_vss_tpu_torch.utils.config import MetricKind
 from duckdb_vss_tpu_torch.utils.padding import INF_SCORE, pad_dim
@@ -849,7 +853,7 @@ def search_graph(
     n_seeds: int = 4,
     descent_steps: int | None = None,
     hop_rerank: int = 0,  # expand the top-`hop_rerank` results one hop
-    # at the finish and merge exactly (see _finish_search)
+    # at the finish and merge exactly (see _one_hop)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """End-to-end ANN search. Returns (scores [B, k] ascending exact
     index-metric values, ids [B, k] slot ids with -1 fill, n_dist []).
@@ -865,7 +869,9 @@ def search_graph(
       bf16 copy of ``vectors``, or ``vectors`` itself), through kernel
       K2 with ``use_pallas``.
     The final rerank always reads the store, so emitted distances are
-    exact f32 sums of the stored rows."""
+    exact f32 sums of the stored rows. On the card the seed beam and the
+    finish are kernels K4 and K5, on the CPU seed_beam and
+    _finish_search."""
     with annotate("search.descent"):
         queries = queries.float()
         q_sq = (queries * queries).sum(-1)
@@ -879,13 +885,18 @@ def search_graph(
                 descent_ef=descent_ef, n_seeds=n_seeds,
                 descent_steps=descent_steps)
     ef_eff = max(ef, k)
+    on_card = queries.is_cuda
     nbr_vecs, nbr_scale, nbr_sq = tables.tiles or (None, None, None)
     if (tables.meta is not None and nbr_vecs is not None
             and ef_eff <= FUSED_MAX_EF and expand <= FUSED_MAX_EXPAND):
         with annotate("search.seed"):
-            seed_s, seed_i = seed_beam(vectors, vec_sq, seeds, queries, q_sq,
-                                       metric, ef_eff)
-            n_dist0 = n_dist0 + (seeds >= 0).sum()
+            if on_card:  # adds the seeds >= 0 to n_dist0, which is ours
+                seed_s, seed_i = seed_kernel(vectors, vec_sq, seeds, queries,
+                                             q_sq, metric, ef_eff, n_dist0)
+            else:
+                seed_s, seed_i = seed_beam(vectors, vec_sq, seeds, queries,
+                                           q_sq, metric, ef_eff)
+                n_dist0 = n_dist0 + (seeds >= 0).sum()
         # recall saturates by ef/2 steps (measured in the JAX package), so
         # the fixed-trip kernel needs no early exit and search no host sync
         steps = max_steps if max_steps is not None else max(8, ef_eff // 2)
@@ -912,9 +923,13 @@ def search_graph(
                 use_pallas=use_pallas, aug=aug, nbr_vecs=nbr_vecs,
                 nbr_scale=nbr_scale, nbr_sq=nbr_sq)
     with annotate("search.finish"):
-        out = _finish_search(vectors, vec_sq, valid_mask, queries, q_sq,
-                             metric, k, scores, ids, n_dist0 + n_dist1,
-                             hop_rerank, state.neighbors0, tables.tiles)
+        n_dist = n_dist0 + n_dist1
+        finish = finish_kernel if on_card else _finish_search
+        out_s, out_i = finish(vectors, vec_sq, valid_mask, queries, q_sq,
+                              metric, k, scores, ids)
+        out = (out_s, out_i, n_dist) if not hop_rerank else _one_hop(
+            vectors, vec_sq, valid_mask, queries, q_sq, metric, k, out_s,
+            out_i, n_dist, hop_rerank, state.neighbors0, tables.tiles)
     count("search.queries", queries.shape[0])
     count("search.distances", out[2])
     return out
@@ -934,20 +949,26 @@ def _sort_score_then_high_id(scores, ids, k):
 
 
 def _finish_search(vectors, vec_sq, valid_mask, queries, q_sq, metric, k,
-                   scores, ids, n_dist, hop=0, neighbors0=None, tiles=None):
-    """Tombstone filter, then exact f32 rerank. Deterministic tie order:
-    equal exact distances resolve to the higher slot id.
-
-    hop > 0 adds a one-hop rerank expansion: score the NEIGHBORS of the
-    top-hop results (through the int8 ``tiles`` when the layout is
-    given, else by gathers from the store), keep the best 16 that are new, live
-    and distinct, rescore those exactly and merge them into the top-k."""
+                   scores, ids):
+    """Tombstone filter, then exact f32 rerank of the beam (scores, ids):
+    (out_s [B, k], out_i [B, k]), -1 where out_s is INF_SCORE.
+    Deterministic tie order: equal exact distances resolve to the higher
+    slot id. The plain version of kernel K5 (search_ends.finish_kernel),
+    which takes the same arguments."""
     live = valid_mask[ids.clamp_min(0).long()] & (ids >= 0)
     exact = gather_scores(vectors, vec_sq, ids, queries, q_sq, metric)
     exact = torch.where(live & (scores < INF_SCORE), exact, INF_SCORE)
-    out_s, out_i = _sort_score_then_high_id(exact, ids, k)
-    if not hop:
-        return out_s, out_i, n_dist
+    return _sort_score_then_high_id(exact, ids, k)
+
+
+def _one_hop(vectors, vec_sq, valid_mask, queries, q_sq, metric, k, out_s,
+             out_i, n_dist, hop, neighbors0, tiles):
+    """The finish's one-hop rerank expansion of its exact top k (out_s,
+    out_i): score the NEIGHBORS of the top-hop results (through the int8
+    ``tiles`` when the layout is given, else by gathers from the store),
+    keep the best 16 that are new, live and distinct, rescore those
+    exactly and merge them into the top-k. Returns (scores, ids, n_dist
+    with the expansion's candidates)."""
     b = queries.shape[0]
     h = min(int(hop), k)
     src = out_i[:, :h]

@@ -24,7 +24,7 @@ METRIC_CODE = {MetricKind.L2SQ: 0, MetricKind.IP: 1, MetricKind.COSINE: 2}
 
 # the kernels every search runs: the first of them to load builds all
 # that are stale, their nvcc processes side by side
-SEARCH_KERNELS = ("fused_descent", "fused_beam")
+SEARCH_KERNELS = ("fused_descent", "fused_beam", "search_ends")
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

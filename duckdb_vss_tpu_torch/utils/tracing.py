@@ -44,13 +44,17 @@ contract between the program and the benchmark, portbench/):
   the key table to the card at the first search after a write into it;
   none on the CPU).
 - search (models/graph.py, search_graph): ``search.descent`` (mxu or
-  beam descent), ``search.seed`` (seed_beam), ``search.beam`` (K1, or
-  the step-by-step beam_search), ``search.finish`` (_finish_search);
-  every operator of search_graph runs inside one of them. Counters
-  ``search.queries`` (rows searched), ``search.distances`` (the n_dist
-  search_graph returns), ``k1.distances`` and ``k1.expansions`` (K1's
-  returned counts), ``descent.kernel_queries`` (the queries kernel K3,
-  the fused descent, took: counted at its launch, ops/fused_descent.py).
+  beam descent), ``search.seed`` (kernel K4, or seed_beam),
+  ``search.beam`` (K1, or the step-by-step beam_search),
+  ``search.finish`` (kernel K5, or _finish_search; and the one-hop
+  expansion); every operator of search_graph runs inside one of them.
+  Counters ``search.queries`` (rows searched), ``search.distances`` (the
+  n_dist search_graph returns), ``k1.distances`` and ``k1.expansions``
+  (K1's returned counts), ``descent.kernel_queries`` (the queries kernel
+  K3, the fused descent, took: counted at its launch,
+  ops/fused_descent.py), ``seed.kernel_queries`` and
+  ``finish.kernel_queries`` (the queries kernels K4, the seed beam, and
+  K5, the finish, took: counted at their launch, ops/search_ends.py).
 - SQL (sql/): ``sql.execute`` (all of Database.execute) holds
   ``sql.parse``, then per statement ``sql.plan`` (binding, the
   index-scan rewrite), the operators ``sql.scan`` (``index.search``
@@ -69,7 +73,7 @@ contract between the program and the benchmark, portbench/):
 
 The trace records host activity, and the card's when CUDA is available:
 every PyTorch operator and the kernels it launched, and the package's
-own kernels K1, K2 and K3 (launched through ctypes, so no operator names
+own kernels K1 to K5 (launched through ctypes, so no operator names
 them; CUPTI records them as kernels all the same).
 """
 

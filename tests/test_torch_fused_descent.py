@@ -189,17 +189,21 @@ def test_fused_descent_rejects_other_devices():
 
 
 @pytest.mark.parametrize("first, other", [("fused_descent", "fused_beam"),
-                                          ("fused_beam", "fused_descent")])
+                                          ("fused_beam", "fused_descent"),
+                                          ("search_ends", "fused_beam")])
 def test_first_search_kernel_builds_both(monkeypatch, first, other):
-    """Whichever of K1 and K3 loads first builds both in one nvcc call
-    when both are stale, so a fresh checkout pays one build time; one
-    that is built already is left alone."""
+    """Whichever of the search kernels (K1, K3, and K4 with K5) loads
+    first builds all of them in one nvcc call when all are stale, so a
+    fresh checkout pays one build time; one that is built already is
+    left alone."""
     from duckdb_vss_tpu_torch.ops import cuda_build
 
     built = []
     monkeypatch.setattr(cuda_build, "build", built.append)
     monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: path)
-    for other_stale, want in ((True, [first, other]), (False, [first])):
+    every = [first] + [n for n in cuda_build.SEARCH_KERNELS if n != first]
+    assert other in every
+    for other_stale, want in ((True, every), (False, [first])):
         built.clear()
         monkeypatch.setattr(cuda_build, "stale", lambda name, s=other_stale: (
             name == first or s))

@@ -139,9 +139,9 @@ def test_search_ties_go_to_higher_slot():
     ids = torch.arange(ef, dtype=torch.int32).repeat(b, 1) * 2
     scores = torch.zeros((b, ef))
     q = torch.zeros((b, 128))
-    s, i, _ = tgraph._finish_search(vecs, vec_sq, torch.ones(40, dtype=bool),
-                                    q, (q * q).sum(1), MetricKind.L2SQ, 6,
-                                    scores, ids, torch.tensor(0))
+    s, i = tgraph._finish_search(vecs, vec_sq, torch.ones(40, dtype=bool),
+                                 q, (q * q).sum(1), MetricKind.L2SQ, 6,
+                                 scores, ids)
     assert i[0].tolist() == [28, 24, 20, 16, 12, 8]
     assert s[0].tolist() == [0.0] * 6
 
